@@ -18,8 +18,7 @@ Measurement definitions (VERDICT r3 asked for one shared vocabulary):
     with a warm persistent compile cache it collapses to a few seconds).
   - device_ms_per_scan: steady-state device-busy time per scan from a
     jax.profiler trace of extra scans after the timed region, parsed with
-    the same machinery as tools/profile_tpu.py (pipeline.traceutil) — the
-    number PROFILE.md tables must agree with.
+    the same machinery as tools/profile.py (pipeline.traceutil).
 
 The accuracy gate (trajectory ATE vs the analytic truth) is checked over
 MULTIPLE seeds; the JSON line is ALWAYS printed — a failed gate sets
@@ -44,7 +43,7 @@ SEEDS = (3, 4, 7)  # multi-seed gate (VERDICT r2: single-seed is a coin flip)
 # OS-128 raw scale (131072 pts/rev), noisy+biased IMU, keyframe retirement
 # AND revisit-driven deep submap spans; drift compounds here, so this is
 # the regime the short bench cannot police
-LONG_ATE_GATE_M = 0.05  # measured 0.0105 on the idle chip
+LONG_ATE_GATE_M = 0.05
 LONG_MIN_SPAN = 17  # the uncapped suffix must demonstrably exceed 16
 LONG_MIN_RATIO = 1.0  # BASELINE flagship target: >1x realtime AT SCALE
 # (VERDICT r4 weak #1: the r4 gate checked only ATE/span, so "passed"
@@ -99,14 +98,11 @@ def run_sequence(cfg, seq, data, timed_range, traced: int = 0):
     if traced > 0 and hi + traced <= len(data):
         from dmsa_lidar_slam_tpu.pipeline import traceutil
 
-        try:
-            with traceutil.capture() as d:
-                for i in range(hi, hi + traced):
-                    feed(slam, data[i])
-                _ = slam.kf_count
-            dev_ms = traceutil.device_busy_ms(d) / traced
-        except Exception as e:  # pragma: no cover - profiling is best-effort
-            print(f"trace capture failed: {e}", file=sys.stderr)
+        with traceutil.capture() as d:
+            for i in range(hi, hi + traced):
+                feed(slam, data[i])
+            _ = slam.kf_count
+        dev_ms = traceutil.device_busy_ms(d) / traced
     return slam, wall, warm, dev_ms
 
 

@@ -1,9 +1,9 @@
-"""dmsa_lidar_slam_tpu — a TPU-native LiDAR-inertial SLAM engine.
+"""dmsa_lidar_slam_tpu — a LiDAR-inertial SLAM engine on JAX/XLA.
 
-A from-scratch JAX/XLA/Pallas implementation of Dense Multi Scan Adjustment
+A from-scratch JAX/XLA implementation of Dense Multi Scan Adjustment
 (DMSA) LiDAR-inertial odometry and global optimization, with the same
 capabilities as the reference C++/ROS implementation
-(davidskdds/DMSA_LiDAR_SLAM, ICRA 2024) but designed TPU-first:
+(davidskdds/DMSA_LiDAR_SLAM, ICRA 2024), built for an accelerator:
 
 - state lives in fixed-shape padded arrays (SoA) so jit caches hold,
 - voxel binning / Gaussian-cell statistics run as sort + segment_sum on device,
@@ -35,26 +35,27 @@ if os.environ.get("DMSA_DISABLE_X64", "0") != "1":
 
     jax.config.update("jax_enable_x64", True)
 
-# TPU matmuls default to bf16 multiplies for f32 inputs; pose math (axis-angle
-# chains, preintegration, barycentric weights) needs true f32 — the bf16
-# default measurably degrades the estimator (keyframe storms on TPU that
-# never appear on CPU).  The hot matmuls here are 3x3-batched, so the full-
-# precision passes cost nothing.
+# On the GPU an f32 matmul may run in TF32 (about three decimal digits)
+# unless the precision says otherwise; pose math (axis-angle chains,
+# preintegration, barycentric weights) and the squared distances compared
+# against centimetre radii need true f32.  "highest" keeps every f32
+# contraction in full f32; the hot matmuls here are 3x3-batched, so the
+# full-precision passes cost little.
 import jax as _jax
 
 _jax.config.update("jax_default_matmul_precision", "highest")
 
-# Persistent compilation cache: the pipeline compiles ~8 large graphs; with
-# the cache, later processes (benchmarks, production restarts) skip the
-# multi-minute cold start entirely.
-if os.environ.get("DMSA_DISABLE_COMPILE_CACHE", "0") != "1":
-    import jax
-
-    jax.config.update(
+# Persistent compilation cache: the pipeline compiles several large graphs,
+# and a later process (benchmark, restart) with the cache skips the
+# multi-minute cold start.  JAX_COMPILATION_CACHE_DIR, when set, is the
+# cache (JAX reads it itself); otherwise the cache sits at one fixed path
+# in the checkout, so every process of this checkout finds it again.
+if not os.environ.get("JAX_COMPILATION_CACHE_DIR"):
+    _jax.config.update(
         "jax_compilation_cache_dir",
-        os.environ.get("DMSA_COMPILE_CACHE_DIR", os.path.expanduser("~/.dmsa_jax_cache")),
+        os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), ".jax_cache"),
     )
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
+_jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
 
 from dmsa_lidar_slam_tpu.config import Config, load_config  # noqa: E402,F401
 

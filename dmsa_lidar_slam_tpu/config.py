@@ -81,22 +81,22 @@ class Config:
     # map view written next to the results (pipeline/viz.py)
     live_view: bool = False
 
-    # --- TPU-build specific: distributed keyframe adjustment ------------
+    # --- distributed keyframe adjustment (beyond the reference) ---------
     # route keyframeOptimization (DmsaSlam.h:212-238) through the sharded
     # GN loop over jax.devices() (parallel.keyframe_dist) instead of the
     # single-chip optimizer — BASELINE config 5's multi-device shape
     distributed_keyframe_opt: bool = False
     dist_table_size: int = 65536  # hash-cell table per grid resolution
     # "spatial": shuffle points to voxel-owner devices, exact local cells,
-    # ~1 MB collectives/iteration (parallel.spatial — SCALING.md backend B);
-    # "hash": r3 point-sharded hash cells with psum'd table reductions.
+    # ~1 MB collectives/iteration (parallel.spatial);
+    # "hash": point-sharded hash cells with psum'd table reductions.
     # NOTE: "hash" optimizes a COARSER model than single-chip/"spatial" —
     # it has no normal-split cell channel (Gaussians.h:27-85 analogue) and
     # owner election drops ~occupied_voxels/2T of cells; the pipelines log
     # a warning when it is selected.
     dist_backend: str = "spatial"
 
-    # --- TPU-build specific shape caps (padding discipline) ---
+    # --- shape caps (fixed compile-time shapes, padding discipline) ---
     # fixed compile-time span of the submap keyframe optimization: the
     # suffix [max(minRelatedKeyId, count - cap) .. count) is materialized
     # at this shape.  None (default) = last_n_keyframes_for_optim, i.e. the

@@ -1,6 +1,6 @@
 """The generic DMSA Gauss-Newton optimizer.
 
-TPU-native re-design of DmsaOptimizer::optimizeSet (reference:
+A re-design of DmsaOptimizer::optimizeSet for XLA (reference:
 include/DMSA/DmsaOptimizer.h:54-150).  Same outer-loop semantics — per
 iteration: rebuild Gaussian cells at two grid resolutions from the current
 global points, freeze cell membership + information matrices, evaluate the
@@ -54,8 +54,8 @@ class ForwardOut(NamedTuple):
 
 
 class TabularProblem(NamedTuple):
-    """A problem in indexed-affine-table form for the fused Pallas kernels
-    (ops.fused_residuals): world point j = quat_rotate(q[idx_j], x_j) +
+    """A problem in indexed-affine-table form for the tabular Gauss-Newton
+    path (ops.fused_residuals): world point j = quat_rotate(q[idx_j], x_j) +
     t[idx_j] with (q, t) rows of a small parameter-dependent pose table.
 
     n_table       table rows INCLUDING the trailing identity row
@@ -192,15 +192,14 @@ def optimize(
         return tuple(cells)
 
     def iteration_tabular(params):
-        """Fused-kernel iteration (ops.fused_residuals): the Gauss-Newton
-        normal equations and the ENTIRE line search each run as one Pallas
-        kernel over the merged sorted cell layout; candidate 0 of the line
-        search is the un-stepped params, so the no-improvement comparison
-        uses a single evaluation path (ADVICE r3 #2)."""
+        """Tabular iteration (ops.fused_residuals): the Gauss-Newton normal
+        equations and the ENTIRE line search each run as one pass over the
+        merged sorted cell layout; candidate 0 of the line search is the
+        un-stepped params, so the no-improvement comparison uses a single
+        evaluation path."""
         from dmsa_lidar_slam_tpu.ops import fused_residuals as fr
 
         pdt = params.dtype
-        use_pallas = fr._use_pallas()
         out = forward_fn(params, data)
         xs, tidx = tabular_fn.point_arrays(data)
         tab_fn = lambda p: tabular_fn.tables(p, data)
@@ -208,11 +207,10 @@ def optimize(
         eye = jnp.eye(num_params, dtype=pdt)
         dtab, j_extra = jax.vmap(lin)(eye)  # [P, Dtab, 8], [P, E]
 
-        build = fr.build_packed if use_pallas else fr.build_packed_ref
         packs, nvs = [], []
         for factor in (settings.grid_size_1_factor, settings.grid_size_2_factor):
             if factor > 1e-30:
-                pk, nv, _ = build(
+                pk, nv, _ = fr.build_packed_ref(
                     out.points,
                     out.mask,
                     out.ring_ids,
@@ -222,14 +220,13 @@ def optimize(
                     settings.min_num_points_per_set,
                     obs_weight=out.obs_weight,
                     split_ids=out.split_ids,
-                    tab=tab,
                 )
                 packs.append(pk)
                 nvs.append(nv)
         packed = packs[0] if len(packs) == 1 else jnp.concatenate(packs, axis=1)
         n_gauss = sum(nvs, jnp.array(0))
 
-        hext = (fr.gn_system if use_pallas else fr.gn_system_ref)(tab, dtab, packed)
+        hext = fr.gn_system_ref(tab, dtab, packed)
         H = hext[:num_params, :num_params].astype(pdt)
         g = hext[:num_params, num_params].astype(pdt)
         je = j_extra.astype(pdt)  # [P, E]
@@ -251,7 +248,7 @@ def optimize(
             [params[None, :], params[None, :] + ks[:, None] * step[None, :]], axis=0
         )
         tabs, extras = jax.vmap(tab_fn)(cand_params)
-        errs = (fr.cand_errors if use_pallas else fr.cand_errors_ref)(tabs, packed)
+        errs = fr.cand_errors_ref(tabs, packed)
         errs = errs.astype(pdt) + jnp.sum(extras.astype(pdt) ** 2, axis=1)
         best = jnp.argmin(errs)
         new_params = jnp.where(best > 0, cand_params[best], params)

@@ -99,7 +99,7 @@ def preintegrate(omega, acc, dt, cov_gyr, cov_acc) -> PreintState:
           = (dR dR2, dv + dR dv2, dp + dv T2 + dR dp2, T1 + T2)
     — so the whole run reduces in log2(T) batched rounds instead of a
     T-step while loop (the reference's per-sample loop,
-    ImuPreintegration.h:53-94, costs ~T * launch-overhead on TPU).  The
+    ImuPreintegration.h:53-94, would cost T sequential steps on device).  The
     covariance recursion cov <- A cov A^T + B N B^T is likewise composed
     associatively over (A, Q) pairs: (A2 A1, A2 Q1 A2^T + Q2), with each
     sample's A/B built from the exclusive-prefix rotation.  Bitwise math

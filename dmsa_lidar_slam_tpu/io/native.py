@@ -1,8 +1,9 @@
 """ctypes loader for the native IO fast path (libdmsa_io.so).
 
-Builds on demand with `make -C dmsa_lidar_slam_tpu/native` (g++ is in the
-image); falls back to the pure-numpy decoders in io.pointcloud2 when the
-shared object is unavailable.
+The library is not shipped: it is built from native/src with
+`make -C dmsa_lidar_slam_tpu/native` at first use (the build needs a C++17
+compiler).  When the build or the load fails, the failure is logged and
+the pure-numpy decoders in io.pointcloud2 take over.
 """
 
 import ctypes
@@ -34,14 +35,18 @@ _SO_PATH = os.path.join(_NATIVE_DIR, "libdmsa_io.so")
 @lru_cache(maxsize=1)
 def _load() -> Optional[ctypes.CDLL]:
     if not os.path.exists(_SO_PATH):
+        # build under a private name, then rename into place: concurrent
+        # first uses (test workers) never load a half-written library
+        tmp = f"libdmsa_io.{os.getpid()}.so.tmp"
         try:
             subprocess.run(
-                ["make", "-C", _NATIVE_DIR, "-s"],
+                ["make", "-C", _NATIVE_DIR, "-s", f"TARGET={tmp}"],
                 check=True,
                 capture_output=True,
                 timeout=120,
             )
-        except Exception as e:  # pragma: no cover
+            os.replace(os.path.join(_NATIVE_DIR, tmp), _SO_PATH)
+        except (OSError, subprocess.SubprocessError) as e:
             log.warning("native IO build failed (%s); using numpy fallback", e)
             return None
     try:

@@ -209,7 +209,7 @@ def submap_view_capped(
 
     The caller must guarantee count - from_id <= n_submap (clamp from_id up
     to count - n_submap first). This bounds the submap optimization cost by
-    n_submap regardless of map capacity — the TPU-shaped analogue of the
+    n_submap regardless of map capacity — the fixed-shape analogue of the
     reference's variable-size getSubmap (MapManagement.h:254-276), which in
     practice also spans only the few most recent keyframes (minRelatedKeyId
     comes from the closest-k static-point candidates, DmsaSlam.h:212-238).

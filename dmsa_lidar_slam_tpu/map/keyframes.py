@@ -1,6 +1,6 @@
 """Keyframe ring-buffer map — the keyframe problem adapter.
 
-TPU-native equivalent of the reference's MapManagement + KeyframeData
+Fixed-shape equivalent of the reference's MapManagement + KeyframeData
 (reference: include/DMSA/MapManagement.h, KeyframeData.h): a fixed-capacity
 buffer of keyframes, each a local PointNormal cloud + ring ids + grid size
 + measured gravity (+ plausibility) + captured relative-odometry prior;
@@ -64,7 +64,7 @@ class KeyframeMapData(NamedTuple):
 def normal_split_ids(normals_w):
     """Bucket world normals into 6 direction classes (dominant axis x sign).
 
-    TPU-shaped stand-in for the reference's per-leaf opposed-normal-pair
+    Fixed-shape stand-in for the reference's per-leaf opposed-normal-pair
     splitting (Gaussians.h:27-85): cells containing two opposing surfaces
     get split because their members land in different buckets.
     """
@@ -145,7 +145,7 @@ def make_structured(shapes: MapShapes, use_gravity: bool, use_odometry: bool, us
     global poses depend on the P = 6(K-1) parameters through the tiny
     relative chain.  The pose-table Jacobian (Dq [K,4,P], Dt [K,3,P]) costs
     P tangents over the chain only, and the per-point contraction is a
-    batched [P_pts,4]x[4,P] matmul per keyframe — MXU-shaped, no gathers
+    batched [P_pts,4]x[4,P] matmul per keyframe — no gathers
     (points are already laid out [K, P_pts, 3]).
     """
 
@@ -205,13 +205,13 @@ def make_structured(shapes: MapShapes, use_gravity: bool, use_odometry: bool, us
 
 @lru_cache(maxsize=None)
 def make_tabular(shapes: MapShapes, use_gravity: bool, use_odometry: bool):
-    """Tabular-problem adapter for the fused Pallas residual kernels
-    (ops.fused_residuals; consumed by dmsa.optimizer's tabular path).
+    """Tabular-problem adapter (ops.fused_residuals; consumed by
+    dmsa.optimizer's tabular path and by parallel.spatial).
 
     The keyframe problem in table form: world point (k, j) =
     quat_rotate(q_k, x_kj) + t_k (MapManagement.h:120-149) — one table row
-    per keyframe pose, point index = keyframe id.  (The unused identity
-    row is appended anyway so both problems share one kernel signature.)
+    per keyframe pose, point index = keyframe id, plus the trailing
+    identity row that the TabularProblem contract requires.
     """
     from dmsa_lidar_slam_tpu.dmsa.optimizer import TabularProblem
 

@@ -1,6 +1,6 @@
 """k-nearest-neighbor normal estimation on the hash grid.
 
-TPU equivalent of the reference's NormalEstimationOMP with kSearch(6) and a
+Equivalent of the reference's NormalEstimationOMP with kSearch(6) and a
 viewpoint at the sensor origin (updateNormals, DmsaSlam.h:557-568): per
 point, covariance of its k nearest neighbors (itself included — PCL
 semantics when the query belongs to the input cloud), normal = eigenvector
@@ -20,42 +20,28 @@ def estimate_normals(points, mask, grid_size, viewpoint=None, k: int = K_NEIGHBO
     `grid_size` sets the neighborhood scale (the cloud's own downsampling
     grid is the natural choice — neighbors live within a cell or two).
     Points with fewer than 3 valid neighbors get normal (0, 0, 1).
-
-    On TPU the neighborhood is FIXED-RADIUS (2 * grid_size) and the
-    count/mean/covariance come from one tiled MXU incidence contraction
-    (ops.nn_bruteforce.radius_neighbor_moments) — the k-NN hash grid's
-    27-cell searchsorted + candidate gathers cost ~10 ms per keyframe
-    event at production shapes.  On a grid-downsampled cloud the 6-NN ball
-    is ~1-2 grid steps, so the radius set is a superset of kSearch(6)
-    (DmsaSlam.h:557-568); tests bound the angular deviation.  Off TPU the
-    exact-kNN hash-grid path remains (test oracle / CPU fallback).
+    Neighbors come from the exact k-NN hash grid (ops.knn), the
+    reference's kSearch(6) semantics (DmsaSlam.h:557-568).
     """
     if viewpoint is None:
         viewpoint = jnp.zeros(3, dtype=points.dtype)
 
-    from dmsa_lidar_slam_tpu.ops import nn_bruteforce as nb
     from dmsa_lidar_slam_tpu.ops.eig3 import smallest_eigvec_sym3
 
-    if nb._use_pallas():
-        cnt, _, cov = nb.radius_neighbor_moments(
-            points.astype(jnp.float32), mask, 2.0 * grid_size
-        )
-        n_neigh = cnt
-    else:
-        grid = knn.build_grid(points, mask, 2.0 * grid_size)
-        idx, d2, valid = knn.knn_indices(grid, points, mask, k, cap=cap)
+    grid = knn.build_grid(points, mask, 2.0 * grid_size)
+    idx, d2, valid = knn.knn_indices(grid, points, mask, k, cap=cap)
 
-        neigh = grid.sorted_pts[idx]  # [N, k, 3]
-        w = valid.astype(points.dtype)  # [N, k]
-        cnt = jnp.maximum(jnp.sum(w, axis=1), 1.0)
-        mean = jnp.sum(neigh * w[:, :, None], axis=1) / cnt[:, None]
-        d = (neigh - mean[:, None, :]) * w[:, :, None]
-        cov = jnp.einsum("nki,nkj->nij", d, d) / jnp.maximum(cnt - 1.0, 1.0)[:, None, None]
-        n_neigh = jnp.sum(w, axis=1)
+    neigh = grid.sorted_pts[idx]  # [N, k, 3]
+    w = valid.astype(points.dtype)  # [N, k]
+    cnt = jnp.maximum(jnp.sum(w, axis=1), 1.0)
+    mean = jnp.sum(neigh * w[:, :, None], axis=1) / cnt[:, None]
+    d = (neigh - mean[:, None, :]) * w[:, :, None]
+    cov = jnp.einsum("nki,nkj->nij", d, d) / jnp.maximum(cnt - 1.0, 1.0)[:, None, None]
+    n_neigh = jnp.sum(w, axis=1)
 
-    # smallest-eigenvalue eigenvector, closed form (ops.eig3) — iterative
-    # jnp.linalg.eigh lowers poorly on TPU and this runs inside the fused
-    # per-scan jit on every keyframe scan (VERDICT r3 #7)
+    # smallest-eigenvalue eigenvector, closed form (ops.eig3): this runs
+    # inside the fused per-scan jit on every keyframe scan, where a batched
+    # iterative eigh would be a loop of small solves
     normal = smallest_eigvec_sym3(cov)
 
     # orient toward viewpoint (PCL flipNormalTowardsViewpoint)

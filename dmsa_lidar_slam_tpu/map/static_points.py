@@ -1,9 +1,9 @@
 """Static-point selection, visibility, and overlap for the sliding window.
 
-TPU-native equivalent of DmsaSlam::addStaticPoints / isVisible / getOverlap
+Equivalent of DmsaSlam::addStaticPoints / isVisible / getOverlap
 (reference: include/DMSA/DmsaSlam.h:264-414): the per-point kd-tree loops
-become batched hash-grid queries over the candidate keyframes' global
-clouds.
+become batched exact nearest-neighbour sweeps (ops.nn_bruteforce) over the
+candidate keyframes' global clouds.
 
 All shapes are static: S candidate keyframes x P points each; the caller
 gathers the candidate keyframes host-side (closest-k + distance gate).

@@ -2,7 +2,7 @@
 
 The DMSA information matrix is V diag(1/max(lambda, floor)) V^T of the cell
 covariance (Gaussians.h:181-201).  jnp.linalg.eigh lowers to an iterative
-solver (slow for large batches of 3x3 on TPU); instead:
+solver (a loop of small solves for large batches of 3x3); instead:
 
   - eigenvalues by the trigonometric closed form (Smith's method),
   - the matrix function WITHOUT eigenvectors via spectral polynomial
@@ -236,8 +236,8 @@ def floored_inverse_sym3(A, floor):
 def smallest_eigvec_sym3(A):
     """Unit eigenvector of the SMALLEST eigenvalue of symmetric [..., 3, 3].
 
-    Closed form, branch-free (no iterative eigh — it lowers poorly on TPU,
-    the reason this module exists): the null space of B = A - lam_min I is
+    Closed form, branch-free (no iterative eigh, the reason this module
+    exists): the null space of B = A - lam_min I is
     spanned by any nonzero cross product of two rows of B; the candidate
     with the largest norm is numerically best.  Near-degenerate spectra
     (lam2 ~ lam_min) make the direction ill-defined mathematically; the

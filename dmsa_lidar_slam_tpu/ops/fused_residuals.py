@@ -1,10 +1,6 @@
-"""Fused Pallas residual kernels for the DMSA Gauss-Newton loop.
+"""Tabular form of the DMSA Gauss-Newton loop.
 
-The optimizer's per-iteration cost on TPU is NOT flops — it is dozens of
-small latency-bound XLA ops: per-candidate [K, M]-shaped gathers of the
-sorted cell layout, log-depth cumsums, run-boundary gathers, layout copies,
-and the [M, P] Jacobian-row materialization (PROFILE.md r3).  Both DMSA
-problems share one structure that lets ALL of it fuse into two kernels:
+Both DMSA problems share one structure:
 
     world point j = quat_rotate(q_table[idx_j], x_j) + t_table[idx_j]
 
@@ -12,38 +8,26 @@ an affine transform indexed into a SMALL pose table (window problem: the
 dense interpolated trajectory table, D ~ 501 rows, reference
 ContinuousTrajectory.h:129-156; keyframe problem: one row per keyframe
 pose, MapManagement.h:120-149).  Static map points ride as table row D,
-pinned to the identity transform — no special case in the kernel.
+pinned to the identity transform.
 
-Kernel 1 — cand_errors: the full line search.  For K candidate pose
-tables at once (candidate 0 = the un-stepped params, so the no-improvement
-comparison uses ONE evaluation path — closing ADVICE r3 #2), computes the
-total squared DMSA residual  sum_cells |q1_r - n_r * mean^T wL mean|
-(DmsaOptimizer.h:234-273 semantics with membership/Lambda frozen at the
-linearization point).  Per tile: one one-hot MXU matmul gathers all K
-tables at once, the quadratic forms are VPU channel math, and the per-run
-reduction is a run-indexed one-hot MXU contraction (run sums =
-big @ onehot_seg^T; hi/lo bf16 splitting keeps candidate errors at
-f32-class accuracy because they are COMPARED against each other) with the
-cross-tile continuing run folded in as one extra run column fed by a
-carry — no HBM gathers, no lane scans over wide channel blocks, no
-layout copies.
+With the cells frozen at the linearization point, everything one
+Gauss-Newton iteration needs comes from the sorted per-point layout and the
+table alone:
 
-Kernel 2 — gn_system: the structured Gauss-Newton normal equations.  Uses
-the run identity   J_r = scale_r * (u_r - (wL s_bar_r)^T B_r)   with
-u_r = sum_j (wL d0_j)^T dp_j/dtheta and B_r = sum_j dp_j/dtheta, the run
-sums taken by the same one-hot MXU contraction (plain bf16: H/g feed a
-line-searched GN direction and tolerate element rounding — r4's [4+P, T]
-segmented Hillis-Steele scan at P=282 was the profile's #1 lever), so
-H = J^T J, g = J^T e and error0 come out of ONE pass (one [JR, JR] MXU
-contraction per tile over run columns) — the [M, P] Jacobian never
-exists.  Replaces the reference's numeric forward differences
-(DmsaOptimizer.h:199-232: one full pipeline pass per parameter) at
-structured-Jacobian fidelity (dmsa.optimizer structured path,
-tests/test_structured_jac.py; bf16 bound pinned by
-tests/test_fused_residuals.py).
+  - cand_errors_ref: the total squared DMSA residual
+    sum_cells |q1_r - n_r * mean^T wL mean| for K candidate tables at once
+    (DmsaOptimizer.h:234-273 semantics; candidate 0 = the un-stepped
+    params, so the no-improvement comparison uses one evaluation path);
+  - gn_system_ref: H = J^T J, g = J^T e and e^T e over the cell residuals
+    in one pass, via the run identity
+    J_r = scale_r * (u_r - (wL s_bar_r)^T B_r) with
+    u_r = sum_j (wL d0_j)^T dp_j/dtheta and B_r = sum_j dp_j/dtheta —
+    replacing the reference's numeric forward differences
+    (DmsaOptimizer.h:199-232: one full pipeline pass per parameter);
+  - build_packed_ref: one-resolution cell build straight to the packed
+    layout (gaussians.build_cells + pack_rows).
 
-Data layout: all per-point inputs are packed into ONE [16, M] f32 array
-(points on LANES — a [M, 3] array would waste 125/128 lanes per tile):
+Data layout: all per-point inputs are packed into ONE [16, M] f32 array:
 
     rows 0-2   x_j (local point; static points: world coords)
     rows 3-5   mu0 (cell mean at build time)
@@ -53,49 +37,17 @@ Data layout: all per-point inputs are packed into ONE [16, M] f32 array
     row  14    run-start flag (1.0 where a new cell begins)
     row  15    1/count at VALID run-END rows, else 0 (mask + inverse count)
 
-M must be a multiple of 256 (guaranteed: every point capacity in the
-pipeline is).  Tables are [K, Dtab, 8] (quat wxyz, transl xyz, pad).
+Tables are [K, Dtab, 8] (quat wxyz, transl xyz, pad).  Run sums are
+segment sums, which XLA lowers to scatter-adds: on the GPU these are
+atomic, so H and the candidate errors change in the last bits from run to
+run.
 """
-
-from functools import lru_cache, partial
 
 import jax
 import jax.numpy as jnp
 
-from dmsa_lidar_slam_tpu.ops import mxu
-
-PACK_ROWS = 16
-
-
-def _use_pallas() -> bool:
-    import os
-
-    if os.environ.get("DMSA_PALLAS_INTERPRET", "0") == "1":
-        return True
-    try:
-        return jax.default_backend() == "tpu"
-    except Exception:  # pragma: no cover
-        return False
-
-
-def _interpret() -> bool:
-    import os
-
-    if os.environ.get("DMSA_PALLAS_INTERPRET", "0") == "1":
-        return True
-    try:
-        return jax.default_backend() != "tpu"
-    except Exception:  # pragma: no cover
-        return True
-
-
-def _round_up(x, m):
-    return -(-x // m) * m
-
-
-# --------------------------------------------------------------------------
-# packing
-# --------------------------------------------------------------------------
+from dmsa_lidar_slam_tpu.core.rotations import quat_rotate, quat_rotate_vjp_q
+from dmsa_lidar_slam_tpu.ops.eig3 import sym6_matvec
 
 
 def pack_rows(cells, xs_sorted, tidx_sorted):
@@ -126,478 +78,25 @@ def pack_rows(cells, xs_sorted, tidx_sorted):
     )
 
 
-def prep_tables(tabs):
-    """[K, Dtab, 8] candidate tables -> [K*8, Dpad] kernel operand.
-
-    COLUMN-major row order (row c*K + k = column c of candidate k): after
-    the one-hot gather the kernel slices contiguous [K, T] blocks per
-    quantity and runs the whole candidate batch in each VPU op — [1, T]
-    per-candidate rows would use 1 of 8 sublanes."""
-    k, dtab, _ = tabs.shape
-    dpad = _round_up(dtab, 128)
-    t = tabs.astype(jnp.float32).transpose(2, 0, 1).reshape(8 * k, dtab)
-    return jnp.pad(t, ((0, 0), (0, dpad - dtab)))
-
-
-def prep_jac_tables(dtabs):
-    """[P, Dtab, 8] table Jacobian -> [7P, Dpad] kernel operand (row c*P+p =
-    d table[:, c] / d theta_p; the pad column 7 is dropped)."""
-    p, dtab, _ = dtabs.shape
-    dpad = _round_up(dtab, 128)
-    t = dtabs.astype(jnp.float32)[:, :, :7].transpose(2, 0, 1).reshape(7 * p, dtab)
-    return jnp.pad(t, ((0, 0), (0, dpad - dtab)))
-
-
-# --------------------------------------------------------------------------
-# channel-layout math helpers ([1, T] rows; usable inside and outside Pallas)
-# --------------------------------------------------------------------------
-
-
-def _qrot(qw, qx, qy, qz, vx, vy, vz):
-    """quat_rotate in channel layout (see core.rotations.quat_rotate)."""
-    tx = 2.0 * (qy * vz - qz * vy)
-    ty = 2.0 * (qz * vx - qx * vz)
-    tz = 2.0 * (qx * vy - qy * vx)
-    ox = vx + qw * tx + (qy * tz - qz * ty)
-    oy = vy + qw * ty + (qz * tx - qx * tz)
-    oz = vz + qw * tz + (qx * ty - qy * tx)
-    return ox, oy, oz
-
-
-def _vjpq(qw, qx, qy, qz, vx, vy, vz, gx, gy, gz):
-    """quat_rotate cotangent wrt q (see core.rotations.quat_rotate_vjp_q)."""
-    tx = 2.0 * (qy * vz - qz * vy)
-    ty = 2.0 * (qz * vx - qx * vz)
-    tz = 2.0 * (qx * vy - qy * vx)
-    aw = gx * tx + gy * ty + gz * tz
-    cvgx, cvgy, cvgz = vy * gz - vz * gy, vz * gx - vx * gz, vx * gy - vy * gx
-    ctgx, ctgy, ctgz = ty * gz - tz * gy, tz * gx - tx * gz, tx * gy - ty * gx
-    gux, guy, guz = gy * qz - gz * qy, gz * qx - gx * qz, gx * qy - gy * qx
-    cvux, cvuy, cvuz = vy * guz - vz * guy, vz * gux - vx * guz, vx * guy - vy * gux
-    ax = 2.0 * qw * cvgx + ctgx + 2.0 * cvux
-    ay = 2.0 * qw * cvgy + ctgy + 2.0 * cvuy
-    az = 2.0 * qw * cvgz + ctgz + 2.0 * cvuz
-    return aw, ax, ay, az
-
-
-def _sym6_mv(lam, vx, vy, vz):
-    """Packed symmetric matvec in channel layout; lam [6, T]."""
-    l00, l01, l02, l11, l12, l22 = (lam[i : i + 1] for i in range(6))
-    return (
-        l00 * vx + l01 * vy + l02 * vz,
-        l01 * vx + l11 * vy + l12 * vz,
-        l02 * vx + l12 * vy + l22 * vz,
-    )
-
-
-def _shift_right(x, s, interp=True):
-    """Zero-filled right shift along the lane axis: out[:, i] = x[:, i-s].
-
-    Compiled Mosaic path: circular tpu roll + mask (lane-offset
-    concatenates trip a Mosaic relayout bug); interpret/XLA path: concat of
-    a zero block and a slice."""
-    if interp:
-        c = x.shape[0]
-        return jnp.concatenate([jnp.zeros((c, s), x.dtype), x[:, :-s]], axis=1)
-    from jax.experimental.pallas import tpu as pltpu
-
-    rolled = pltpu.roll(x, s, 1)
-    col = jax.lax.broadcasted_iota(jnp.int32, x.shape, 1)
-    return jnp.where(col < s, jnp.zeros_like(x), rolled)
-
-
-def _seg_scan(v, f, interp=True):
-    """Segmented inclusive prefix sum along lanes.
-
-    v [C, T] values, f [1, T] run-start flags (1.0 where a new run begins).
-    Returns (prefix [C, T], covered [1, T]) where prefix[:, i] sums v over
-    [start_of_run(i) .. i] (runs clipped to the tile) and covered[:, i] > 0
-    iff a run start exists in [0..i] (used for the cross-tile carry mask).
-    Hillis-Steele with log2(T) doubling steps, all lane shifts.
-    """
-    t = v.shape[1]
-    s = 1
-    while s < t:
-        v_sh = _shift_right(v, s, interp)
-        f_sh = _shift_right(f, s, interp)
-        v = v + jnp.where(f > 0.0, 0.0, v_sh)
-        f = jnp.maximum(f, f_sh)
-        s *= 2
-    return v, f
-
-
-def _onehot_gather_f32(tab, ohb):
-    """EXACT f32 gather tab @ onehot via 3 bf16 limb passes (ops.mxu
-    invariant 1: a one-hot contraction never sums two table entries)."""
-    h, m, l = mxu.split3(tab)
-    dims = ((1,), (0,))
-    return (
-        mxu.dot_default(h, ohb, dims)
-        + mxu.dot_default(m, ohb, dims)
-        + mxu.dot_default(l, ohb, dims)
-    )
-
-
-def _cumsum_lanes(x, interp=True):
-    """Plain (unsegmented) inclusive prefix sum along the lane axis."""
-    t = x.shape[1]
-    s = 1
-    while s < t:
-        x = x + _shift_right(x, s, interp)
-        s *= 2
-    return x
-
-
-def _run_ids(newc, interp=True):
-    """Per-position run column ids for the one-hot run-sum contraction.
-
-    newc [1, T] run-start flags.  Returns (seg_i [1, T] i32, total [1, 1]
-    i32, had_cont [1, 1] bool): positions of runs STARTING in the tile get
-    ids 0..n_starts-1; positions of a run CONTINUING from the previous tile
-    (before the first start) get id = n_starts — a column no in-tile run
-    uses, so the cross-tile carry can be folded in as one extra run.  When
-    every position starts a run (n_starts == T) there is no continuation
-    and all ids fit in [0, T)."""
-    csum = _cumsum_lanes(newc, interp)  # [1, T] inclusive #starts
-    t = newc.shape[1]
-    total = csum[:, t - 1 : t]
-    seg = jnp.where(csum < 0.5, total, csum - 1.0)
-    had_cont = newc[:, 0:1] < 0.5
-    return seg.astype(jnp.int32), total.astype(jnp.int32), had_cont
-
-
-def _run_sums_matmul(big, seg_i, total, had_cont, carry_ref, interp=True, hilo=False):
-    """Per-run sums of `big` [C, T] via ONE one-hot MXU contraction.
-
-    Replaces the [C, T] x log2(T) segmented Hillis-Steele scan (the r4
-    bottleneck at C = 4+P = 286: PROFILE.md lever #1) with
-    sums[c, r] = sum_j big[c, j] * (seg_j == r) — a [C, T] @ [T, T]
-    bf16 matmul with f32 accumulation.  The continuing run from the
-    previous tile rides as run column `total` (see _run_ids): carry_ref's
-    column 0 is added there (only when a continuation exists — otherwise
-    that column is an empty ghost run and must stay zero), and the new
-    carry is the trailing run's column.
-
-    hilo=False: bf16 rounds each ELEMENT of big to ~0.4% before the f32
-    accumulate; callers must tolerate that on every channel (gn_system:
-    fine, H/g feed a line-searched GN direction).  hilo=True: exact hi/lo
-    bf16 splitting — big = hi + lo with both parts bf16-representable and
-    the one-hot matrix exact 0/1, so TWO bf16 matmuls reconstruct the f32
-    contraction to ~2^-16 element rounding (cand_errors: line-search
-    comparisons must stay f32-class; Mosaic has no 3-pass precision).
-    """
-    t = big.shape[1]
-    rowt = jax.lax.broadcasted_iota(jnp.int32, (t, t), 0)
-    ohseg = (rowt == seg_i).astype(jnp.bfloat16)  # [T(runs), T(pos)]
-
-    dims = ((1,), (1,))
-    if hilo:
-        hi, lo = mxu.split2(big)
-        sums = mxu.dot_default(hi, ohseg, dims) + mxu.dot_default(lo, ohseg, dims)
-    else:
-        sums = mxu.dot_default(big.astype(jnp.bfloat16), ohseg, dims)
-    lane = jax.lax.broadcasted_iota(jnp.int32, (1, t), 1)
-    cmask = ((lane == total) & had_cont).astype(jnp.float32)
-    sums = sums + cmask * carry_ref[:, 0:1]
-    last = seg_i[:, t - 1 : t]
-    lmask = (lane == last).astype(jnp.float32)
-    carry_ref[:, 0:1] = jnp.sum(sums * lmask, axis=1, keepdims=True)
-    return sums
-
-
-# --------------------------------------------------------------------------
-# kernel 1: line-search candidate errors
-# --------------------------------------------------------------------------
-
-
-def _cand_kernel(k_cand, dpad, t_tile, interp, tab_ref, pk_ref, out_ref, carry_ref):
-    import jax.experimental.pallas as pl
-
-    i = pl.program_id(0)
-
-    @pl.when(i == 0)
-    def _():
-        out_ref[:] = jnp.zeros_like(out_ref)
-        carry_ref[:] = jnp.zeros_like(carry_ref)
-
-    pk = pk_ref[:]  # [16, T]
-    xs = pk[0:3]
-    mu0 = pk[3:6]
-    lam = pk[6:12]
-    w = pk[12:13]
-    tidx = pk[13:14]
-    newc = pk[14:15]
-    invn_end = pk[15:16]
-
-    rowi = jax.lax.broadcasted_iota(jnp.int32, (dpad, t_tile), 0)
-    ohb = (rowi == tidx.astype(jnp.int32)).astype(jnp.bfloat16)  # [Dpad, T]
-    # EXACT f32 one-hot gather in 3 bf16 passes: the one-hot has a single
-    # nonzero per column, so limb splitting reconstructs the f32 table
-    # value bit-for-bit — at K=15 candidates and the window's Dpad=512
-    # this [8K, Dpad] gather at 6-pass f32 HIGHEST was the kernel's
-    # dominant cost
-    tg = _onehot_gather_f32(tab_ref[:], ohb)  # [8K, T], row c*K + k
-
-    k = k_cand
-    # whole-candidate-batch math on [K, T] blocks (full sublane utilization)
-    qw, qx, qy, qz = tg[0:k], tg[k : 2 * k], tg[2 * k : 3 * k], tg[3 * k : 4 * k]
-    tx3, ty3, tz3 = tg[4 * k : 5 * k], tg[5 * k : 6 * k], tg[6 * k : 7 * k]
-    px, py, pz = _qrot(qw, qx, qy, qz, xs[0:1], xs[1:2], xs[2:3])
-    d0x = (px + tx3 - mu0[0:1]) * w
-    d0y = (py + ty3 - mu0[1:2]) * w
-    d0z = (pz + tz3 - mu0[2:3]) * w
-    lx, ly, lz = _sym6_mv(lam, d0x, d0y, d0z)
-    quad = lx * d0x + ly * d0y + lz * d0z
-
-    # per-run sums via the hi/lo one-hot MXU contraction (f32-class —
-    # candidate errors are COMPARED against each other, so unlike
-    # gn_system plain bf16 rounding is not acceptable here); lam/invn ride
-    # masked to end rows so each run column carries its cell's values
-    endm = (invn_end > 0.0).astype(jnp.float32)
-    big = jnp.concatenate(
-        [d0x, d0y, d0z, quad, lam * endm, invn_end], axis=0
-    )  # [4K+7, T]
-    seg_i, total, had_cont = _run_ids(newc, interp)
-    sums = _run_sums_matmul(big, seg_i, total, had_cont, carry_ref, interp, hilo=True)
-
-    sx, sy, sz = sums[0:k], sums[k : 2 * k], sums[2 * k : 3 * k]
-    q1 = sums[3 * k : 4 * k]
-    lam_r = sums[4 * k : 4 * k + 6]
-    invn_r = sums[4 * k + 6 : 4 * k + 7]
-    cx, cy, cz = _sym6_mv(lam_r, sx, sy, sz)
-    corr = invn_r * (cx * sx + cy * sy + cz * sz)
-    val = q1 - corr
-    cmat = jnp.where(invn_r > 0.0, jnp.abs(val), 0.0)  # [K, T(runs)]
-    out_ref[:, 0:1] += jnp.sum(cmat, axis=1, keepdims=True)
-
-
-@lru_cache(maxsize=None)
-def _cand_call(m, k_cand, dpad, t_tile):
-    import jax.experimental.pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    n_tiles = m // t_tile
-    kern = partial(_cand_kernel, k_cand, dpad, t_tile, _interpret())
-
-    def call(tab, pk):
-        return pl.pallas_call(
-            kern,
-            grid=(n_tiles,),
-            in_specs=[
-                pl.BlockSpec((8 * k_cand, dpad), lambda i: (0, 0), memory_space=pltpu.VMEM),
-                pl.BlockSpec((PACK_ROWS, t_tile), lambda i: (0, i), memory_space=pltpu.VMEM),
-            ],
-            out_specs=pl.BlockSpec((k_cand, 128), lambda i: (0, 0), memory_space=pltpu.VMEM),
-            out_shape=jax.ShapeDtypeStruct((k_cand, 128), jnp.float32),
-            scratch_shapes=[pltpu.VMEM((4 * k_cand + 7, 128), jnp.float32)],
-            interpret=_interpret(),
-            cost_estimate=pl.CostEstimate(
-                flops=2 * 8 * k_cand * dpad * m + 60 * k_cand * m,
-                bytes_accessed=4 * (PACK_ROWS * m + 8 * k_cand * dpad * n_tiles),
-                transcendentals=0,
-            ),
-        )(tab, pk)
-
-    return jax.jit(call)
-
-
-def cand_errors(tabs, packed):
-    """Total squared DMSA cell residual per candidate pose table.
-
-    tabs [K, Dtab, 8] f32 (quat wxyz + transl + pad; row Dtab-1 should be
-    the identity for static points), packed [16, M] (pack_rows).
-    Returns err [K] f32 — sum over valid cells of |q1 - n * mean^T wL mean|,
-    equal to sum(cell_residuals^2) up to the 1e-30 sqrt epsilon.
-    """
-    k, dtab, _ = tabs.shape
-    m = packed.shape[1]
-    t_tile = 1024 if m % 1024 == 0 else (512 if m % 512 == 0 else 256)
-    tab = prep_tables(tabs)
-    with jax.enable_x64(False):
-        out = _cand_call(m, k, tab.shape[1], t_tile)(tab, packed)
-    return out[:, 0]
-
-
-# --------------------------------------------------------------------------
-# kernel 2: Gauss-Newton normal equations (H, g, error0 in one pass)
-# --------------------------------------------------------------------------
-
-
-def _gn_kernel(p_dim, dpad, t_tile, jr, interp, tab_ref, jtab_ref, pk_ref, out_ref, carry_ref):
-    import jax.experimental.pallas as pl
-
-    i = pl.program_id(0)
-
-    @pl.when(i == 0)
-    def _():
-        out_ref[:] = jnp.zeros_like(out_ref)
-        carry_ref[:] = jnp.zeros_like(carry_ref)
-
-    pk = pk_ref[:]
-    xs = pk[0:3]
-    mu0 = pk[3:6]
-    lam = pk[6:12]
-    w = pk[12:13]
-    tidx = pk[13:14]
-    newc = pk[14:15]
-    invn_end = pk[15:16]
-
-    rowi = jax.lax.broadcasted_iota(jnp.int32, (dpad, t_tile), 0)
-    ohb = (rowi == tidx.astype(jnp.int32)).astype(jnp.bfloat16)
-    tg = _onehot_gather_f32(tab_ref[:], ohb)  # [8, T] current-params rows
-    # bf16 table-Jacobian gather: ohb has ONE nonzero per column, so the
-    # matmul is an exact gather of the bf16-rounded jtab (no summation
-    # error) at ~4x the f32 MXU rate — at P=282 (48-keyframe submap) the
-    # f32 gather was ~50% of the r4 kernel.  The ~0.4% rounding lands on J
-    # (H, g) only; error/line-search evaluation stays f32 in cand_errors.
-    mj = mxu.dot_default(
-        jtab_ref[:], ohb, ((1,), (0,))
-    )  # [7P, T] gathered table Jacobian (f32 acc — Mosaic requires 32-bit)
-
-    qw, qx, qy, qz = (tg[c : c + 1] for c in range(4))
-    tx3, ty3, tz3 = (tg[4 + c : 5 + c] for c in range(3))
-    px, py, pz = _qrot(qw, qx, qy, qz, xs[0:1], xs[1:2], xs[2:3])
-    d0x = (px + tx3 - mu0[0:1]) * w
-    d0y = (py + ty3 - mu0[1:2]) * w
-    d0z = (pz + tz3 - mu0[2:3]) * w
-    lx, ly, lz = _sym6_mv(lam, d0x, d0y, d0z)
-    quad = lx * d0x + ly * d0y + lz * d0z
-
-    def contract7(cot):  # cot: 7 x [1, T] -> [P, T]
-        acc = cot[0] * mj[0:p_dim]
-        for c in range(1, 7):
-            acc = acc + cot[c] * mj[c * p_dim : (c + 1) * p_dim]
-        return acc
-
-    # u_j rows: cotangent (vjp_q(wL d0), wL d0).
-    #
-    # The full row identity is J_r = scale * (u_r - (wL s_bar)^T B_r) with
-    # B_r = sum_j dp_j/dtheta — but gn_system is ONLY evaluated at the
-    # params the cells were just built from, so the current run mean equals
-    # mu0 up to f32 re-evaluation noise and s_bar = mean(d0) ~ 1e-7.  The
-    # correction term is O(|wL| * s_bar) ~ 1e-6 of the row magnitude, so
-    # the B machinery (3P channels + 3 extra cotangent contractions, 4x
-    # the kernel's VPU work at P=282) is dropped here; the XLA reference
-    # implementation keeps it, and the kernel-vs-reference test bounds the
-    # difference.
-    aw, ax, ay, az = _vjpq(qw, qx, qy, qz, xs[0:1], xs[1:2], xs[2:3], lx, ly, lz)
-    u = contract7((aw, ax, ay, az, lx, ly, lz))  # [P, T]
-
-    # per-run sums via the one-hot MXU contraction (not a lane scan): the
-    # consumers below only need RUN-indexed values (val/scale live at one
-    # row per cell), so everything downstream stays on the run axis and
-    # the final J^T J contraction runs over run columns.  lam/invn ride
-    # along masked to end rows so each run column carries its cell's
-    # Lambda and 1/n.
-    endm = (invn_end > 0.0).astype(jnp.float32)
-    big = jnp.concatenate(
-        [d0x, d0y, d0z, quad, lam * endm, invn_end, u], axis=0
-    )  # [11+P, T]
-    seg_i, total, had_cont = _run_ids(newc, interp)
-    sums = _run_sums_matmul(big, seg_i, total, had_cont, carry_ref, interp)
-
-    sx, sy, sz = sums[0:1], sums[1:2], sums[2:3]
-    q1 = sums[3:4]
-    lam_r = sums[4:10]
-    invn_r = sums[10:11]
-    ur = sums[11 : 11 + p_dim]
-
-    cx, cy, cz = _sym6_mv(lam_r, sx, sy, sz)
-    val = q1 - invn_r * (cx * sx + cy * sy + cz * sz)
-    mask = invn_r > 0.0
-    r = jnp.sqrt(jnp.abs(val) + 1e-30)
-    scale = jnp.where(mask, jnp.sign(val) / r, 0.0)
-    j_rows = scale * ur  # [P, T(runs)]
-    e_row = jnp.where(mask, r, 0.0)  # [1, T(runs)]
-    pad = jnp.zeros((jr - p_dim - 1, t_tile), jnp.float32)
-    jext = jnp.concatenate([j_rows, e_row, pad], axis=0).astype(jnp.bfloat16)
-    out_ref[:] += mxu.dot_default(jext, jext, ((1,), (1,)))
-
-
-@lru_cache(maxsize=None)
-def _gn_call(m, p_dim, dpad, t_tile):
-    import jax.experimental.pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    n_tiles = m // t_tile
-    jr = _round_up(p_dim + 1, 16)
-    kern = partial(_gn_kernel, p_dim, dpad, t_tile, jr, _interpret())
-
-    def call(tab, jtab, pk):
-        return pl.pallas_call(
-            kern,
-            grid=(n_tiles,),
-            in_specs=[
-                pl.BlockSpec((8, dpad), lambda i: (0, 0), memory_space=pltpu.VMEM),
-                pl.BlockSpec((7 * p_dim, dpad), lambda i: (0, 0), memory_space=pltpu.VMEM),
-                pl.BlockSpec((PACK_ROWS, t_tile), lambda i: (0, i), memory_space=pltpu.VMEM),
-            ],
-            out_specs=pl.BlockSpec((jr, jr), lambda i: (0, 0), memory_space=pltpu.VMEM),
-            out_shape=jax.ShapeDtypeStruct((jr, jr), jnp.float32),
-            scratch_shapes=[pltpu.VMEM((11 + p_dim, 128), jnp.float32)],
-            interpret=_interpret(),
-            cost_estimate=pl.CostEstimate(
-                flops=2 * (8 + 7 * p_dim) * dpad * m
-                + 2 * (11 + p_dim) * t_tile * m
-                + 2 * jr * jr * m
-                + 80 * p_dim * m,
-                bytes_accessed=4 * (PACK_ROWS * m + (8 + 7 * p_dim) * dpad * n_tiles),
-                transcendentals=m,
-            ),
-        )(tab, jtab, pk)
-
-    return jax.jit(call)
-
-
-def gn_system(tab, dtabs, packed):
-    """One-pass Gauss-Newton normal equations over the cell residuals.
-
-    tab [Dtab, 8] f32 current-params pose table, dtabs [P, Dtab, 8] its
-    parameter Jacobian (from jax.linearize of the table builder), packed
-    [16, M] (pack_rows).  Returns Hext [P+1, P+1] f32 where
-    Hext[:P, :P] = J^T J, Hext[:P, P] = J^T e, Hext[P, P] = e^T e — over
-    the CELL residuals only (extra residual terms are combined by the
-    caller).
-    """
-    p_dim, dtab, _ = dtabs.shape
-    m = packed.shape[1]
-    t_tile = 1024 if m % 1024 == 0 else (512 if m % 512 == 0 else 256)
-    # the gathered [7P, T] Jacobian block is the kernel's VMEM pig; shrink
-    # the tile so it stays ~<= 8 MB of the 16 MB scoped budget (P = 594 at
-    # the reference-default 100-keyframe ring would overflow at T = 1024)
-    while t_tile > 256 and 7 * p_dim * t_tile * 4 > 8_400_000:
-        t_tile //= 2
-    tabp = prep_tables(tab[None])  # [8, Dpad]
-    jtab = prep_jac_tables(dtabs).astype(jnp.bfloat16)  # [7P, Dpad]
-    with jax.enable_x64(False):
-        out = _gn_call(m, p_dim, tabp.shape[1], t_tile)(tabp, jtab, packed)
-    return out[: p_dim + 1, : p_dim + 1]
-
-
-# --------------------------------------------------------------------------
-# XLA reference implementations (tests + non-TPU fallback)
-# --------------------------------------------------------------------------
-
-
 def _seg_ids(newc):
     return jnp.cumsum(newc.astype(jnp.int32)) - 1
 
 
 def cand_errors_ref(tabs, packed):
-    """Reference (pure XLA) implementation of cand_errors — same math via
-    segment_sum; used by tests and as the non-TPU fallback."""
+    """Total squared DMSA cell residual per candidate pose table.
+
+    tabs [K, Dtab, 8] (quat wxyz + transl + pad; row Dtab-1 should be the
+    identity for static points), packed [16, M] (pack_rows).  Returns
+    err [K] — sum over valid cells of |q1 - n * mean^T wL mean|, equal to
+    sum(cell_residuals^2) up to the 1e-30 sqrt epsilon."""
     m = packed.shape[1]
     xs = packed[0:3].T
     mu0 = packed[3:6].T
     lam6 = packed[6:12].T
     w = packed[12]
     tidx = packed[13].astype(jnp.int32)
-    newc = packed[14]
     invn_end = packed[15]
-    seg = _seg_ids(newc)
-
-    from dmsa_lidar_slam_tpu.core.rotations import quat_rotate
-    from dmsa_lidar_slam_tpu.ops.eig3 import sym6_matvec
+    seg = _seg_ids(packed[14])
 
     def one(tab):
         q = tab[:, 0:4][tidx].astype(jnp.float32)
@@ -614,26 +113,25 @@ def cand_errors_ref(tabs, packed):
     return jax.vmap(one)(tabs)
 
 
-def gn_system_ref(tab, dtabs, packed, include_mean_term=True):
-    """Reference (pure XLA) implementation of gn_system.
+def gn_system_ref(tab, dtabs, packed):
+    """One-pass Gauss-Newton normal equations over the cell residuals.
 
-    include_mean_term: keep the (wL s_bar)^T B_r row correction.  At the
+    tab [Dtab, 8] current-params pose table, dtabs [P, Dtab, 8] its
+    parameter Jacobian (from jax.linearize of the table builder), packed
+    [16, M] (pack_rows).  Returns Hext [P+1, P+1] where
+    Hext[:P, :P] = J^T J, Hext[:P, P] = J^T e, Hext[P, P] = e^T e — over
+    the CELL residuals only (extra residual terms are combined by the
+    caller).  The (wL s_bar)^T B_r row correction stays: at the
     linearization point s_bar is only the f32 error of the stored cell
-    mean (exactly zero in exact arithmetic), so the Pallas kernel omits it
-    (see _gn_kernel); pass False to mirror the kernel bit-for-bit."""
+    mean, and keeping it makes H match autodiff exactly."""
     m = packed.shape[1]
-    p_dim = dtabs.shape[0]
     xs = packed[0:3].T
     mu0 = packed[3:6].T
     lam6 = packed[6:12].T
     w = packed[12]
     tidx = packed[13].astype(jnp.int32)
-    newc = packed[14]
     invn_end = packed[15]
-    seg = _seg_ids(newc)
-
-    from dmsa_lidar_slam_tpu.core.rotations import quat_rotate, quat_rotate_vjp_q
-    from dmsa_lidar_slam_tpu.ops.eig3 import sym6_matvec
+    seg = _seg_ids(packed[14])
 
     q = tab[:, 0:4][tidx].astype(jnp.float32)
     t3 = tab[:, 4:7][tidx].astype(jnp.float32)
@@ -664,499 +162,18 @@ def gn_system_ref(tab, dtabs, packed, include_mean_term=True):
     mask = invn_end > 0.0
     r = jnp.sqrt(jnp.abs(val) + 1e-30)
     scale = jnp.where(mask, jnp.sign(val) / r, 0.0)
-    if include_mean_term:
-        j_rows = scale[:, None] * (
-            ur - (wls[:, 0:1] * br[0] + wls[:, 1:2] * br[1] + wls[:, 2:3] * br[2])
-        )
-    else:
-        j_rows = scale[:, None] * ur
+    j_rows = scale[:, None] * (
+        ur - (wls[:, 0:1] * br[0] + wls[:, 1:2] * br[1] + wls[:, 2:3] * br[2])
+    )
     e_row = jnp.where(mask, r, 0.0)
     jext = jnp.concatenate([j_rows, e_row[:, None]], axis=1)  # [M, P+1]
     return jext.T @ jext
 
 
-# --------------------------------------------------------------------------
-# kernel 3: cell build — sorted payload -> packed per-point input
-# --------------------------------------------------------------------------
-#
-# Replaces everything build_cells does AFTER the voxel sort (two cumsum
-# rounds with boundary gathers, the eigenvalue-floored inverse, weight
-# normalization, the member-aligned lamw6 gather, and pack_rows) with ONE
-# pallas_call of two phases over the sorted tiles:
-#
-#   phase 0 (forward):  segmented scans accumulate per-run count / mean /
-#     second moments (around a run-local origin = the run's first member,
-#     broadcast forward by the same scan machinery, so f32 cancellation
-#     stays at within-cell scale), ring diversity, and observation sums;
-#     at run-END rows the covariance -> floored inverse -> unnormalized
-#     weight*Lambda and the cell mean are computed and parked in a VMEM
-#     "endstats" scratch; global sums (valid count, raw-weight sum) land in
-#     a scalar scratch.
-#   phase 1 (reverse):  a BACKWARD segmented broadcast carries the end-row
-#     stats to every member (tiles visited right-to-left via the index
-#     map), applies the now-known global weight normalization, and emits
-#     the [16, T] packed block (pack_rows layout) directly.
-#
-# Semantics match gaussians.build_cells exactly (same acceptance rules,
-# same normalization, same hard eigenvalue floor) up to f32 summation
-# order.
-
-
-def _acos3(r):
-    """acos(r) / 3 without an acos primitive (Mosaic lowers neither acos
-    nor atan): Abramowitz-Stegun 4.4.45 polynomial seed (|err| < 6.7e-5)
-    + one Newton step on cos(3*phi) = r, which restores ~f32 accuracy
-    everywhere the derivative is nonzero; at r -> +-1 (repeated
-    eigenvalues) the step is suppressed and the seed's error is absorbed
-    by the divided-difference fallbacks downstream."""
-    x = jnp.abs(r)
-    poly = jnp.sqrt(jnp.maximum(1.0 - x, 0.0)) * (
-        1.5707288 + x * (-0.2121144 + x * (0.0742610 - 0.0187293 * x))
-    )
-    acos = jnp.where(r >= 0.0, poly, jnp.pi - poly)
-    phi = acos / 3.0
-    s3 = jnp.sin(3.0 * phi)
-    d = jnp.cos(3.0 * phi) - r
-    denom = 3.0 * s3
-    step = jnp.where(jnp.abs(denom) > 1e-6, d / jnp.where(jnp.abs(denom) > 1e-6, denom, 1.0), 0.0)
-    return phi + step
-
-
-def _eigvals6_rows(a):
-    """sym_eigvals6 in channel layout: a = [6, T] rows -> (l1, l2, l3)
-    descending, each [1, T] (port of ops.eig3.sym_eigvals6)."""
-    a00, a01, a02, a11, a12, a22 = (a[i : i + 1] for i in range(6))
-    q = (a00 + a11 + a22) / 3.0
-    b00, b11, b22 = a00 - q, a11 - q, a22 - q
-    p2 = (b00 * b00 + b11 * b11 + b22 * b22 + 2.0 * (a01 * a01 + a02 * a02 + a12 * a12)) / 6.0
-    eps = 1e-30
-    p = jnp.sqrt(jnp.maximum(p2, eps))
-    detb = (
-        b00 * (b11 * b22 - a12 * a12)
-        - a01 * (a01 * b22 - a12 * a02)
-        + a02 * (a01 * a12 - b11 * a02)
-    )
-    r = jnp.clip(detb / (2.0 * p * p * p), -1.0, 1.0)
-    phi = _acos3(r)
-    l1 = q + 2.0 * p * jnp.cos(phi)
-    l3 = q + 2.0 * p * jnp.cos(phi + 2.0 * jnp.pi / 3.0)
-    l2 = 3.0 * q - l1 - l3
-    iso = p2 < eps
-    l1 = jnp.where(iso, q, l1)
-    l2 = jnp.where(iso, q, l2)
-    l3 = jnp.where(iso, q, l3)
-    return l1, l2, l3
-
-
-def _floored_inverse6_rows(a, floor):
-    """ops.eig3.floored_inverse_sym6 in channel layout ([6, T] -> [6, T]);
-    same hard-floor spectral polynomial (see eig3._floor_fns — the r4
-    smooth barrier cost ~5 exp per point for a differentiability nothing
-    uses), bit-for-bit math."""
-    m = floor
-
-    def g(x):
-        return 1.0 / jnp.maximum(x, m)
-
-    def dg(x):
-        return jnp.where(x > m, -1.0 / jnp.maximum(x * x, 1e-30), 0.0)
-
-    l1, l2, l3 = _eigvals6_rows(a)
-    dd1 = g(l1)
-
-    def _ddiff(la, lb):
-        diff = la - lb
-        small = jnp.abs(diff) < 1e-6
-        safe = jnp.where(small, 1.0, diff)
-        return jnp.where(small, dg(0.5 * (la + lb)), (g(la) - g(lb)) / safe)
-
-    dd12 = _ddiff(l1, l2)
-    dd23 = _ddiff(l2, l3)
-    diff13 = l1 - l3
-    small13 = jnp.abs(diff13) < 1e-6
-
-    def d2g(x):
-        return jnp.where(x > m, 2.0 / jnp.maximum(x * x * x, 1e-30), 0.0)
-
-    safe13 = jnp.where(small13, 1.0, diff13)
-    dd123 = jnp.where(small13, 0.5 * d2g((l1 + l3) * 0.5), (dd12 - dd23) / safe13)
-
-    a00, a01, a02, a11, a12, a22 = (a[i : i + 1] for i in range(6))
-    # A1 = A - l1 I, A2 = A - l2 I; prod = A1 @ A2 (commuting packed product)
-    p00, p11, p22 = a00 - l1, a11 - l1, a22 - l1
-    q00, q11, q22 = a00 - l2, a11 - l2, a22 - l2
-    r00 = p00 * q00 + a01 * a01 + a02 * a02
-    r01 = p00 * a01 + a01 * q11 + a02 * a12
-    r02 = p00 * a02 + a01 * a12 + a02 * q22
-    r11 = a01 * a01 + p11 * q11 + a12 * a12
-    r12 = a01 * a02 + p11 * a12 + a12 * q22
-    r22 = a02 * a02 + a12 * a12 + p22 * q22
-    o00 = dd12 * p00 + dd123 * r00 + dd1
-    o01 = dd12 * a01 + dd123 * r01
-    o02 = dd12 * a02 + dd123 * r02
-    o11 = dd12 * p11 + dd123 * r11 + dd1
-    o12 = dd12 * a12 + dd123 * r12
-    o22 = dd12 * p22 + dd123 * r22 + dd1
-    return jnp.concatenate([o00, o01, o02, o11, o12, o22], axis=0)
-
-
-def _shift_left(x, s, interp=True):
-    """Zero-filled left shift along lanes: out[:, i] = x[:, i+s]."""
-    if interp:
-        c = x.shape[0]
-        return jnp.concatenate([x[:, s:], jnp.zeros((c, s), x.dtype)], axis=1)
-    from jax.experimental.pallas import tpu as pltpu
-
-    # roll is circular with a non-negative shift; left-shift by s == roll
-    # by T - s, wrapped lanes masked off
-    rolled = pltpu.roll(x, x.shape[1] - s, 1)
-    col = jax.lax.broadcasted_iota(jnp.int32, x.shape, 1)
-    return jnp.where(col >= x.shape[1] - s, jnp.zeros_like(x), rolled)
-
-
-def _seg_scan_rev(v, f, interp=True):
-    """Backward segmented inclusive scan (suffix sums within runs, flags at
-    run ENDS).  Mirror of _seg_scan."""
-    t = v.shape[1]
-    s = 1
-    while s < t:
-        v_sh = _shift_left(v, s, interp)
-        f_sh = _shift_left(f, s, interp)
-        v = v + jnp.where(f > 0.0, 0.0, v_sh)
-        f = jnp.maximum(f, f_sh)
-        s *= 2
-    return v, f
-
-
-def _build_decode(kin, dpad, t_tile, tab_ref):
-    """Shared input decode for the two build kernels.
-
-    Returns (xs, w, ring, obs, tidx, newc, is_end, get_pts) — get_pts is
-    only called by the forward kernel (the table gather is real work)."""
-    if dpad:
-        # compact layout: xs(3), enc, newc, is_end — w/ring/tidx unpacked
-        # from enc, world points recomputed from the pose table exactly
-        # like the gn/cand kernels do (so the stored cell means match the
-        # residual kernels' linearization point bit-for-bit, and the sort
-        # carries HALF the payload).
-        xs = kin[0:3]
-        enc_i = kin[3:4].astype(jnp.int32)
-        newc = kin[4:5]
-        is_end = kin[5:6]
-        w = (enc_i & 1).astype(jnp.float32)
-        ring = ((enc_i >> 1) & 1023).astype(jnp.float32)
-        tidx = (enc_i >> 11).astype(jnp.float32)
-        obs = w
-
-        def get_pts():
-            rowi = jax.lax.broadcasted_iota(jnp.int32, (dpad, t_tile), 0)
-            ohb = (rowi == (enc_i >> 11)).astype(jnp.bfloat16)
-            tg = _onehot_gather_f32(tab_ref[:], ohb)  # exact f32 positions
-            px, py, pz = _qrot(
-                tg[0:1], tg[1:2], tg[2:3], tg[3:4], xs[0:1], xs[1:2], xs[2:3]
-            )
-            p3 = jnp.concatenate([px + tg[4:5], py + tg[5:6], pz + tg[6:7]], axis=0)
-            return p3 * w  # masked rows: keep origins/moments junk-free
-    else:
-        xs = kin[3:6]
-        w = kin[6:7]
-        ring = kin[7:8]
-        obs = kin[8:9]
-        tidx = kin[9:10]
-        newc = kin[10:11]
-        is_end = kin[11:12]
-
-        def get_pts():
-            return kin[0:3]
-
-    return xs, w, ring, obs, tidx, newc, is_end, get_pts
-
-
-def _build_fwd_kernel(t_tile, min_points, floor, dpad, interp, *refs):
-    """Forward build pass: per-run moments -> end-row cell stats.
-
-    Emits endstats [10, T] blocks to HBM (NOT a VMEM scratch: a [10, n]
-    scratch hits the 16 MB scoped-VMEM limit at n ~ 400k — the
-    reference-default 100-keyframe ring at 4096 pts/kf) and accumulates
-    the (valid count, raw-weight sum) scalars in SMEM."""
-    import jax.experimental.pallas as pl
-
-    if dpad:
-        tab_ref, kin_ref, end_ref, stats_ref, carry_ref = refs
-    else:
-        tab_ref = None
-        kin_ref, end_ref, stats_ref, carry_ref = refs
-    i = pl.program_id(0)
-    col = jax.lax.broadcasted_iota(jnp.int32, (1, t_tile), 1)
-
-    @pl.when(i == 0)
-    def _():
-        carry_ref[:] = jnp.zeros_like(carry_ref)
-        stats_ref[0, 0] = 0.0  # SMEM accepts scalar stores only
-        stats_ref[0, 1] = 0.0
-
-    kin = kin_ref[:]
-    xs, w, ring, obs, tidx, newc, is_end, get_pts = _build_decode(
-        kin, dpad, t_tile, tab_ref
-    )
-    pts = get_pts()
-    # ring-prev across the tile boundary (carry row 12)
-    rp = _shift_right(ring, 1, interp)
-    rp = jnp.where(col == 0, carry_ref[12:13, 0:1], rp)
-    carry_ref[12:13, 0:1] = ring[:, t_tile - 1 : t_tile]
-    ringdiff = ((newc == 0.0) & (ring != rp)).astype(jnp.float32)
-
-    # scan A: broadcast the run's first member (origin) forward
-    o, cov_o = _seg_scan(newc * pts, newc, interp)
-    o = o + jnp.where(cov_o > 0.0, 0.0, carry_ref[0:3, 0:1])
-    carry_ref[0:3, 0:1] = o[:, t_tile - 1 : t_tile]
-
-    d = (pts - o) * w
-    dx, dy, dz = d[0:1], d[1:2], d[2:3]
-    outer = jnp.concatenate(
-        [dx * dx, dx * dy, dx * dz, dy * dy, dy * dz, dz * dz], axis=0
-    )
-    vals = jnp.concatenate([w, d, outer, ringdiff, obs], axis=0)  # [12, T]
-    pref, cov_b = _seg_scan(vals, newc, interp)
-    pref = pref + jnp.where(cov_b > 0.0, 0.0, carry_ref[0:12, 128:129])
-    carry_ref[0:12, 128:129] = pref[:, t_tile - 1 : t_tile]
-
-    n = pref[0:1]
-    safe_n = jnp.maximum(n, 1.0)
-    mean = pref[1:4] / safe_n
-    mx, my, mz = mean[0:1], mean[1:2], mean[2:3]
-    mouter = jnp.concatenate(
-        [mx * mx, mx * my, mx * mz, my * my, my * mz, mz * mz], axis=0
-    )
-    cov6 = (pref[4:10] - n * mouter) / jnp.maximum(n - 1.0, 1.0)
-    diverse = pref[10:11] > 0.5
-    validf = ((n > 0.5) & (n >= float(min_points)) & diverse).astype(jnp.float32)
-    vend = validf * is_end
-
-    info6 = _floored_inverse6_rows(cov6, floor)
-    raw_w = pref[11:12] / (safe_n * safe_n)
-    lam6u = info6 * (raw_w * validf)
-    mu0 = o + mean
-    invn_end = vend / safe_n
-
-    end_ref[0:6] = lam6u
-    end_ref[6:9] = mu0
-    end_ref[9:10] = invn_end
-
-    stats_ref[0, 0] += jnp.sum(vend)
-    stats_ref[0, 1] += jnp.sum(vend * raw_w)
-
-
-def _build_bwd_kernel(t_tile, dpad, interp, *refs):
-    """Backward build pass (tiles visited right-to-left): broadcast the
-    end-row stats to every member, apply the global weight normalization,
-    emit the [16, T] packed block."""
-    import jax.experimental.pallas as pl
-
-    if dpad:
-        tab_ref, kin_ref, end_ref, stats_ref, out_ref, carry_ref = refs
-    else:
-        tab_ref = None
-        kin_ref, end_ref, stats_ref, out_ref, carry_ref = refs
-    i = pl.program_id(0)
-
-    @pl.when(i == 0)
-    def _():
-        carry_ref[:] = jnp.zeros_like(carry_ref)
-
-    kin = kin_ref[:]
-    xs, w, ring, obs, tidx, newc, is_end, _ = _build_decode(
-        kin, dpad, t_tile, tab_ref
-    )
-    es = end_ref[:]  # [10, T]
-    bvals = es[0:9] * is_end
-    bv, cov_r = _seg_scan_rev(bvals, is_end, interp)
-    bv = bv + jnp.where(cov_r > 0.0, 0.0, carry_ref[0:9, 0:1])
-    carry_ref[0:9, 0:1] = bv[:, 0:1]
-
-    n_valid = stats_ref[0, 0]
-    sum_raw = stats_ref[0, 1]
-    wnorm = n_valid / jnp.maximum(sum_raw, 1e-30)
-
-    out_ref[0:3] = xs
-    out_ref[3:6] = bv[6:9]  # mu0 broadcast
-    out_ref[6:12] = bv[0:6] * wnorm  # lamw6, normalized
-    out_ref[12:13] = w
-    out_ref[13:14] = tidx
-    out_ref[14:15] = newc
-    out_ref[15:16] = es[9:10]  # invn at valid end rows
-
-
-@lru_cache(maxsize=None)
-def _build_call(n, t_tile, min_points, floor, dpad=0):
-    import jax.experimental.pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    n_tiles = n // t_tile
-    interp = _interpret()
-    fwd = partial(_build_fwd_kernel, t_tile, min_points, floor, dpad, interp)
-    bwd = partial(_build_bwd_kernel, t_tile, dpad, interp)
-
-    kin_rows = 6 if dpad else 12
-
-    def seq(i):
-        return (0, i)
-
-    def rev(i):
-        return (0, n_tiles - 1 - i)
-
-    tab_spec = (
-        [pl.BlockSpec((8, dpad), lambda i: (0, 0), memory_space=pltpu.VMEM)]
-        if dpad
-        else []
-    )
-
-    def call(*ops):
-        # TWO pallas_calls with the end-row stats staged through HBM: the
-        # old single-call two-phase grid kept endstats as a [10, n] VMEM
-        # scratch, which exceeds the 16 MB scoped-VMEM limit for n beyond
-        # ~390k points (100-keyframe submaps).  The HBM round trip is
-        # 2 x 40 B/point at full bandwidth — noise next to the sort.
-        endstats, stats = pl.pallas_call(
-            fwd,
-            grid=(n_tiles,),
-            in_specs=tab_spec
-            + [pl.BlockSpec((kin_rows, t_tile), seq, memory_space=pltpu.VMEM)],
-            out_specs=(
-                pl.BlockSpec((10, t_tile), seq, memory_space=pltpu.VMEM),
-                pl.BlockSpec(memory_space=pltpu.SMEM),
-            ),
-            out_shape=(
-                jax.ShapeDtypeStruct((10, n), jnp.float32),
-                jax.ShapeDtypeStruct((1, 2), jnp.float32),
-            ),
-            scratch_shapes=[pltpu.VMEM((16, 256), jnp.float32)],
-            interpret=interp,
-            cost_estimate=pl.CostEstimate(
-                flops=300 * n + (2 * 8 * dpad * n if dpad else 0),
-                bytes_accessed=4 * n * (kin_rows + 10),
-                transcendentals=4 * n,
-            ),
-        )(*ops)
-        packed = pl.pallas_call(
-            bwd,
-            grid=(n_tiles,),
-            in_specs=tab_spec
-            + [
-                pl.BlockSpec((kin_rows, t_tile), rev, memory_space=pltpu.VMEM),
-                pl.BlockSpec((10, t_tile), rev, memory_space=pltpu.VMEM),
-                pl.BlockSpec(memory_space=pltpu.SMEM),
-            ],
-            out_specs=pl.BlockSpec((PACK_ROWS, t_tile), rev, memory_space=pltpu.VMEM),
-            out_shape=jax.ShapeDtypeStruct((PACK_ROWS, n), jnp.float32),
-            scratch_shapes=[pltpu.VMEM((9, 128), jnp.float32)],
-            interpret=interp,
-            cost_estimate=pl.CostEstimate(
-                flops=100 * n,
-                bytes_accessed=4 * n * (kin_rows + 10 + PACK_ROWS),
-                transcendentals=0,
-            ),
-        )(*(list(ops) + [endstats, stats]))
-        return packed, stats
-
-    return jax.jit(call)
-
-
-def build_packed(points_w, mask, ring_ids, xs, tidx, grid_size, min_points, obs_weight=None, split_ids=None, tab=None):
-    """One-resolution cell build straight to the packed kernel input.
-
-    Sort + run-boundary flags in XLA, everything after in the build kernel.
-    Returns (packed [16, N], num_valid [], num_raw []).  Semantics =
-    gaussians.build_cells + pack_rows (tests/test_fused_residuals.py pins
-    the equivalence; f32 summation order differs, and the run-local-origin
-    moments are the numerically safer of the two).
-
-    When `tab` ([Dtab, 8] pose table, quat wxyz + transl) is given and
-    obs_weight is None (the reference never weights point sets —
-    OptimizablePointSet.h:52 default 1.0, no override), the sort carries
-    HALF the payload: world points are recomputed in-kernel from (tab, xs,
-    tidx) exactly like the gn/cand kernels, and (tidx, ring, mask) pack
-    into one f32 lane (tidx<=8191, ring<=1023, all exact under 2^24).
-    The stored cell means then match the residual kernels' linearization
-    point bit-for-bit.  `points_w` still supplies the voxel keys.
-    """
-    from dmsa_lidar_slam_tpu.ops import voxel
-    from dmsa_lidar_slam_tpu.ops.gaussians import COV_EIG_FLOOR
-
-    n = points_w.shape[0]
-    hi, lo = voxel.voxel_keys(points_w, mask, grid_size, channel=split_ids)
-    wf = mask.astype(jnp.float32)
-    t_tile = 1024 if n % 1024 == 0 else (512 if n % 512 == 0 else 256)
-
-    if tab is not None and obs_weight is None:
-        assert tab.shape[0] <= 8192, "enc packs tidx in 13 bits (f32-exact)"
-        enc = (
-            (tidx.astype(jnp.int32) << 11)
-            | ((ring_ids.astype(jnp.int32) & 1023) << 1)
-            | mask.astype(jnp.int32)
-        ).astype(jnp.float32)
-        s = jax.lax.sort(
-            (hi, lo, xs[:, 0], xs[:, 1], xs[:, 2], enc), num_keys=2, is_stable=True
-        )
-        hi_s, lo_s = s[0], s[1]
-        newc = jnp.concatenate(
-            [jnp.ones((1,), bool), (hi_s[1:] != hi_s[:-1]) | (lo_s[1:] != lo_s[:-1])]
-        )
-        is_end = jnp.concatenate([newc[1:], jnp.ones((1,), bool)])
-        enc_s = s[5]
-        kin = jnp.stack(
-            list(s[2:5])
-            + [enc_s, newc.astype(jnp.float32), is_end.astype(jnp.float32)],
-            axis=0,
-        )
-        num_raw = jnp.sum(newc & ((enc_s.astype(jnp.int32) & 1) > 0))
-        tabp = prep_tables(tab[None])  # [8, Dpad]
-        with jax.enable_x64(False):
-            packed, stats = _build_call(
-                n, t_tile, int(min_points), float(COV_EIG_FLOOR), dpad=tabp.shape[1]
-            )(tabp, kin)
-        return packed, stats[0, 0].astype(jnp.int32), num_raw
-
-    obs = wf if obs_weight is None else obs_weight.astype(jnp.float32) * wf
-    ops_in = (
-        hi,
-        lo,
-        points_w[:, 0],
-        points_w[:, 1],
-        points_w[:, 2],
-        wf,
-        ring_ids.astype(jnp.float32),
-        obs,
-        xs[:, 0],
-        xs[:, 1],
-        xs[:, 2],
-        tidx.astype(jnp.float32),
-    )
-    s = jax.lax.sort(ops_in, num_keys=2, is_stable=True)
-    hi_s, lo_s = s[0], s[1]
-    newc = jnp.concatenate(
-        [jnp.ones((1,), bool), (hi_s[1:] != hi_s[:-1]) | (lo_s[1:] != lo_s[:-1])]
-    )
-    is_end = jnp.concatenate([newc[1:], jnp.ones((1,), bool)])
-    w_s = s[5]
-    kin = jnp.stack(
-        list(s[2:5])  # p
-        + list(s[8:11])  # xs
-        + [w_s, s[6], s[7], s[11]]  # w, ring, obs, tidx
-        + [newc.astype(jnp.float32), is_end.astype(jnp.float32)],
-        axis=0,
-    )
-    num_raw = jnp.sum(newc & (w_s > 0.5))
-    with jax.enable_x64(False):
-        packed, stats = _build_call(n, t_tile, int(min_points), float(COV_EIG_FLOOR))(kin)
-    return packed, stats[0, 0].astype(jnp.int32), num_raw
-
-
-def build_packed_ref(points_w, mask, ring_ids, xs, tidx, grid_size, min_points, obs_weight=None, split_ids=None, tab=None):
-    """Reference path: gaussians.build_cells + pack_rows (the pre-kernel
-    implementation) — test oracle and non-TPU fallback.  `tab` is accepted
-    for signature parity with build_packed and ignored (this path takes
-    the caller's world points directly)."""
+def build_packed_ref(points_w, mask, ring_ids, xs, tidx, grid_size, min_points, obs_weight=None, split_ids=None):
+    """One-resolution cell build straight to the packed layout:
+    gaussians.build_cells + pack_rows.  Returns (packed [16, N],
+    num_valid [], num_raw [])."""
     from dmsa_lidar_slam_tpu.ops import gaussians
 
     aux = jnp.concatenate([xs, tidx.astype(jnp.float32)[:, None]], axis=1)

@@ -1,6 +1,6 @@
 """Gaussian cell statistics: per-voxel mean / covariance / information matrix.
 
-TPU-native replacement for the reference's Gaussians container + octree leaf
+Fixed-shape replacement for the reference's Gaussians container + octree leaf
 iteration (reference: include/DMSA/Gaussians.h:87-202,
 DmsaOptimizer.h:275-350).  A "cell set" here is a fixed-capacity padded array
 of candidate cells; validity is a mask combining the reference's acceptance
@@ -14,7 +14,7 @@ rules:
   - rebalancing weights w_k ∝ obs_weight_k / n_k, normalized to mean 1 over
     valid cells (Gaussians.h:170-179).
 
-Performance shape (all TPU-scatter-free): binning sorts points by voxel key
+Performance shape (scatter-free): binning sorts points by voxel key
 once per cell build; cells are identified by the *sorted position of their
 first member* (run-start slots, ops.voxel.bin_runs), so per-cell and
 per-point quantities share one [N]-indexed layout.  Every reduction is a
@@ -48,9 +48,9 @@ class CellSet(NamedTuple):
     cell build, not one per candidate):
       lamw6    [N,6]    weight_r * Lambda_r of the point's cell, packed
                         symmetric (00,01,02,11,12,22; 0 for invalid cells).
-                        Packed columns instead of [N,3,3] because TPU
-                        gathers / layout copies of tiny-matrix tensors
-                        dominated the optimizer profile.
+                        Packed columns instead of [N,3,3]: gathers and
+                        layout copies of tiny-matrix tensors cost more
+                        than six flat columns.
 
     Per *cell* arrays, meaningful only at run-start rows (slot = run start):
       info6    [N,6]    packed information matrix of the cell (no weight)
@@ -77,8 +77,8 @@ class CellSet(NamedTuple):
     num_raw: jnp.ndarray
     point_cell: jnp.ndarray
     # member-aligned cell validity (True at EVERY member row of an accepted
-    # cell, not just the run start) — the fused Pallas residual kernels
-    # read validity at run-END rows, and a member-aligned form avoids a
+    # cell, not just the run start) — the tabular Gauss-Newton form
+    # reads validity at run-END rows, and a member-aligned form avoids a
     # [N]-row bool gather per build (ops.fused_residuals)
     valid_mem: Optional[jnp.ndarray] = None
 
@@ -141,20 +141,20 @@ def build_cells(
     optional [N] per-point observation weight whose per-cell mean feeds the
     rebalancing weight (getWeightOfPointSet; OptimizablePointSet.h:52).
     split_ids optional [N] small ints subdividing voxels by surface
-    orientation — the TPU-shaped analogue of the reference's normal-based
+    orientation — the fixed-shape analogue of the reference's normal-based
     set splitting (Gaussians.h:27-85).  aux optional [N, A] f32 extra
     per-point payload to ride through the sort; when given, returns
-    (CellSet, aux_sorted [N, A]) — used by the fused Pallas residual
-    kernels to obtain sorted local points / table indices without separate
-    post-sort gathers.
+    (CellSet, aux_sorted [N, A]) — used by the tabular Gauss-Newton form
+    (ops.fused_residuals) to obtain sorted local points / table indices
+    without separate post-sort gathers.
 
     Two cumsum rounds (member counts/means, then centered second moments),
     one [N,6] + one [N,3x3] boundary gather, zero scatters.
     """
     n = points.shape[0]
-    # per-point inputs ride THROUGH the sort as payload operands (separate
-    # post-sort [N]-row gathers are latency-bound on TPU and showed up
-    # individually in the profile); ring ids and mask ride as f32 columns.
+    # per-point inputs ride THROUGH the sort as payload operands (no
+    # separate post-sort [N]-row gathers); ring ids and mask ride as f32
+    # columns.
     # CONTRACT: ring_ids must fit in 24 bits (f32 mantissa) to stay exact in
     # the payload — real lidar ring counts are <= 128 (OS-128) and the
     # pipeline's synthesized ids are k % 1000 (dmsa_slam_ros.cpp:478), so

@@ -1,6 +1,6 @@
 """Fixed-radius neighbor queries and kNN on a hash grid — no trees.
 
-TPU-native replacement for the reference's PCL KdTreeFLANN usage: static
+Tree-free replacement for the reference's PCL KdTreeFLANN usage: static
 point matching (DmsaSlam.h:285-345), overlap computation (DmsaSlam.h:377-414)
 and the k=6 normal-estimation search (DmsaSlam.h:557-568).
 
@@ -21,7 +21,7 @@ import jax.numpy as jnp
 
 _QUERY_CHUNK = 4096
 
-# 30-bit spatial hash (int64 sorts are emulated and slow on TPU; collisions
+# 30-bit spatial hash (int32 keys sort faster than int64; collisions
 # over the 2^30 space are ~n^2/2^31 — a fraction of a cell for our sizes —
 # and harmless anyway because every candidate passes a real distance check)
 _P1, _P2, _P3 = 73856093, 19349663, 83492791

@@ -1,162 +1,66 @@
-"""Exact nearest-neighbor distances by brute force on the MXU (Pallas).
+"""Exact nearest-neighbour distances by brute force.
 
-Replaces the hash-grid fixed-radius queries (ops.knn) on the static-point /
-overlap hot path (reference: DmsaSlam::addStaticPoints / getOverlap,
-DmsaSlam.h:264-414).  The hash grid gathers 27x`cap` candidate points per
-query from HBM — large random gathers are the slowest primitive on TPU and
-dominated the whole per-scan cost (~160 ms at bench shapes).  Brute force
-recasts the query as a tiled distance-matrix sweep:
+Static-point search and overlap (reference: DmsaSlam::addStaticPoints /
+getOverlap, DmsaSlam.h:264-414) ask, for every query point, whether a valid
+reference point lies within a radius.  The clouds hold a few ten thousand
+points, so a sweep over all pairs is exact and needs no tree:
 
-    d2[i, j] = |q_j|^2 - 2 r_i . q_j + |r_i|^2
+    d2[q] = min_r |q - r|^2   over valid r
 
-The cross term is a matmul (MXU); |r|^2 and the validity penalty ride along
-as a 4th contraction row so the kernel is ONE dot_general + ONE rowwise min
-per tile — no gathers, no sort, no materialized [N, Q] matrix in HBM.  At
-bench shapes (20k x 12k + 8k x 20k) this is ~2 ms, and it is EXACT (the
-hash grid truncated cells at `cap` members).
+The distance is the squared difference, not the expansion
+|q|^2 - 2 r.q + |r|^2: the expansion cancels catastrophically at scene
+coordinates, the difference stays exact to f32 rounding of the result.
 
-Numerical note: callers should pass roughly-centered coordinates (the
-wrapper subtracts the masked reference mean) so |p|^2 stays ~scene-radius^2
-and the f32 cancellation error stays well below practical radii.
-
-Layout note: point arrays are carried transposed ([4, N] / [4, Q]) because
-a [N, 3] f32 array pads its last dim to 128 lanes in VMEM (42x waste);
-[4, N] pads 4 -> 8 sublanes only.
+Plain JAX over query chunks: XLA fuses the broadcast, the squares and the
+min into one reduction, so the [N, Q] distance tile is never written to
+device memory (on the H100 the 20480 x 12288 sweep takes less time than
+writing that tile would).  A hand-written Triton kernel of the same sweep
+(a block of queries in registers, a loop over reference tiles with a
+running min) measured slower than this fusion on the H100 at the bench
+shapes, and was removed (PERF.md).
 """
-
-from functools import partial
 
 import jax
 import jax.numpy as jnp
 
-from dmsa_lidar_slam_tpu.ops import mxu
-
-_TQ = 1024  # query tile (lanes of the [TN, TQ] distance tile)
-_TN = 1024  # reference tile (sublanes); [TN, TQ] f32 distance tile = 4 MB
-# VMEM (the hi/lo product keeps ~3 product tiles live; the scoped VMEM
-# limit is 16 MB and TN=2048 measured 16.5 MB)
-_PENALTY = jnp.float32(1e30)
+XLA_CHUNK = 32768  # queries per lax.map step: one step at the bench shapes
 
 
-def _use_pallas() -> bool:
-    try:
-        return jax.default_backend() == "tpu"
-    except Exception:  # pragma: no cover - backend probing never raises in practice
-        return False
-
-
-def _pad_cols(a, mult):
-    n = a.shape[-1]
-    pad = (-n) % mult
+def _pad_to(a, mult, value):
+    pad = (-a.shape[-1]) % mult
     if pad:
-        a = jnp.pad(a, [(0, 0)] * (a.ndim - 1) + [(0, pad)])
+        a = jnp.pad(a, [(0, 0)] * (a.ndim - 1) + [(0, pad)], constant_values=value)
     return a
 
 
-def _prep(ref_pts, ref_valid, queries):
-    """Build the transposed augmented operands (see module docstring).
+def _operands(ref_pts, ref_valid, queries):
+    """refs [4, N] rows (x, y, z, penalty) and queries [3, Q], f32.
 
-    refA [4, Np]: rows (-2x, -2y, -2z, |r|^2 + penalty_if_invalid)
-    qA   [4, Qp]: rows (x, y, z, 1)
-    qn   [1, Qp]: |q|^2
-    """
-    refc = jnp.sum(jnp.where(ref_valid[:, None], ref_pts, 0.0), axis=0) / jnp.maximum(
-        jnp.sum(ref_valid), 1
-    )
-    # sanitize invalid slots: a NaN/Inf coordinate in a masked slot would
-    # otherwise poison every query's min through the matmul
-    r = jnp.where(ref_valid[:, None], ref_pts - refc, 0.0).astype(jnp.float32)
-    q = (queries - refc).astype(jnp.float32)
-
-    rn = jnp.sum(r * r, axis=1) + jnp.where(ref_valid, 0.0, _PENALTY)
-    refA = jnp.concatenate([(-2.0 * r).T, rn[None, :]], axis=0)  # [4, N]
-    qA = jnp.concatenate([q.T, jnp.ones((1, q.shape[0]), jnp.float32)], axis=0)
-    qn = jnp.sum(q * q, axis=1)[None, :]  # [1, Q]
-
-    refA = _pad_cols(refA, _TN)
-    # padded ref columns must never win the min: their 4th row is the penalty
-    n = r.shape[0]
-    col = jnp.arange(refA.shape[1])
-    refA = refA.at[3, :].set(jnp.where(col < n, refA[3, :], _PENALTY))
-    qA = _pad_cols(qA, _TQ)
-    qn = _pad_cols(qn, _TQ)
-    return refA, qA, qn
+    Invalid references get an +inf penalty and zero coordinates: a NaN/Inf
+    in a masked slot must not poison every query's min."""
+    r = jnp.where(ref_valid[:, None], ref_pts, 0.0).astype(jnp.float32)
+    pen = jnp.where(ref_valid, 0.0, jnp.inf).astype(jnp.float32)
+    refs = jnp.concatenate([r.T, pen[None, :]], axis=0)
+    q = jnp.nan_to_num(queries.astype(jnp.float32)).T
+    return refs, q
 
 
-def _kernel(refA_ref, qA_ref, qn_ref, out_ref):
-    import jax.experimental.pallas as pl
+def _sweep(refs, q, chunk=XLA_CHUNK):
+    """min over refs of |q - r|^2 + penalty, per query.  refs [4, N],
+    q [3, Q] -> [Q]."""
+    nq = q.shape[1]
+    chunk = min(chunk, nq)
+    qp = _pad_to(q, chunk, 0.0)
 
-    k = pl.program_id(1)  # ref-tile index (innermost grid dim)
-
-    @pl.when(k == 0)
-    def _():
-        out_ref[:] = jnp.full_like(out_ref, jnp.inf)
-
-    # bf16 hi/lo product: r.q = rh.qh + rh.ql + rl.qh + rl.ql + O(2^-32) —
-    # four single-pass bf16 MXU contractions instead of one SIX-pass f32
-    # (plain bf16 is too coarse for squared distances compared against
-    # ~0.04 m^2 radii, and rl.ql is NOT negligible at |r|,|q| ~ scene
-    # radius: dropping it costs ~0.05 m^2)
-    rh, rl = mxu.split2(refA_ref[:])
-    qh, ql = mxu.split2(qA_ref[:])
-    dims = ((0,), (0,))
-    dot = (mxu.dot_default(rh, qh, dims) + mxu.dot_default(rl, ql, dims)) + (
-        mxu.dot_default(rh, ql, dims) + mxu.dot_default(rl, qh, dims)
-    )
-    d2 = dot + qn_ref[:]
-    out_ref[:] = jnp.minimum(out_ref[:], jnp.min(d2, axis=0, keepdims=True))
-
-
-@partial(jax.jit, static_argnames=())
-def _pallas_min_sq_dist(refA, qA, qn):
-    n_ref_tiles = refA.shape[1] // _TN
-    n_q_tiles = qA.shape[1] // _TQ
-    # x64 mode leaks i64 grid/index arithmetic into Mosaic (which rejects it:
-    # "failed to legalize func.return"); the kernel is pure f32/i32, so trace
-    # it with x64 off.
-    with jax.enable_x64(False):
-        return _call_pallas(n_q_tiles, n_ref_tiles, refA, qA, qn)
-
-
-def _call_pallas(n_q_tiles, n_ref_tiles, refA, qA, qn):
-    import jax.experimental.pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    out = pl.pallas_call(
-        _kernel,
-        grid=(n_q_tiles, n_ref_tiles),
-        in_specs=[
-            pl.BlockSpec((refA.shape[0], _TN), lambda j, k: (0, k), memory_space=pltpu.VMEM),
-            pl.BlockSpec((4, _TQ), lambda j, k: (0, j), memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, _TQ), lambda j, k: (0, j), memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec((1, _TQ), lambda j, k: (0, j), memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((1, n_q_tiles * _TQ), jnp.float32),
-        cost_estimate=pl.CostEstimate(
-            flops=2 * 4 * refA.shape[1] * qA.shape[1],
-            bytes_accessed=4 * (n_q_tiles * refA.size + n_ref_tiles * (qA.size + qn.size)),
-            transcendentals=0,
-        ),
-    )(refA, qA, qn)
-    return out.reshape(-1)
-
-
-def _jnp_min_sq_dist(refA, qA, qn, chunk=_TQ):
-    """Fallback (CPU tests / non-TPU): same math, lax.map over query chunks.
-
-    chunk must divide the padded query count; _TQ is the padding unit."""
-    qAc = qA.reshape(4, -1, chunk) if qA.shape[1] > chunk else qA[:, None, :]
-    qnc = qn.reshape(1, -1, chunk) if qn.shape[1] > chunk else qn[:, None, :]
-
-    def one(args):
-        qa, qb = args  # [4, C], [1, C]
-        d2 = jax.lax.dot_general(
-            refA, qa, (((0,), (0,)), ((), ())), preferred_element_type=jnp.float32
-        ) + qb
+    def one(qc):  # [3, C]
+        d2 = refs[3][:, None]
+        for k in range(3):
+            d = refs[k][:, None] - qc[k][None, :]
+            d2 = d2 + d * d
         return jnp.min(d2, axis=0)
 
-    out = jax.lax.map(one, (jnp.moveaxis(qAc, 1, 0), jnp.moveaxis(qnc, 1, 0)))
-    return out.reshape(-1)
+    out = jax.lax.map(one, qp.reshape(3, -1, chunk).transpose(1, 0, 2))
+    return out.reshape(-1)[:nq]
 
 
 def min_sq_dist(ref_pts, ref_valid, queries, query_valid):
@@ -166,149 +70,11 @@ def min_sq_dist(ref_pts, ref_valid, queries, query_valid):
     query_valid [Q] bool.  Returns [Q] f32 (+inf where the query is invalid
     or no valid reference exists).
     """
-    nq = queries.shape[0]
-    refA, qA, qn = _prep(ref_pts, ref_valid, queries)
-    if _use_pallas():
-        d2 = _pallas_min_sq_dist(refA, qA, qn)
-    else:
-        # pad fallback chunks the same way the kernel tiles queries
-        d2 = _jnp_min_sq_dist(refA, qA, qn)
-    d2 = jnp.maximum(d2[:nq], 0.0)  # clip f32 cancellation below zero
-    any_ref = jnp.any(ref_valid)
-    return jnp.where(query_valid & any_ref, d2, jnp.inf)
+    refs, q = _operands(ref_pts, ref_valid, queries)
+    return jnp.where(query_valid, _sweep(refs, q), jnp.inf)
 
 
 def has_neighbor_within(ref_pts, ref_valid, queries, query_valid, radius):
     """Boolean [Q]: exists a valid reference within `radius` of the query."""
     d2 = min_sq_dist(ref_pts, ref_valid, queries, query_valid)
     return d2 <= jnp.asarray(radius, jnp.float32) ** 2
-
-
-# --------------------------------------------------------------------------
-# fixed-radius neighbor moments (normal estimation)
-# --------------------------------------------------------------------------
-#
-# estimate_normals' k=6-NN hash grid costs ~10 ms per keyframe event at
-# production shapes (27-cell searchsorted + candidate gathers: large random
-# gathers again).  The brute-force recast: the [TN, TQ] distance tile from
-# the same hi/lo contraction, thresholded at the radius, IS the neighbor
-# incidence matrix — so per-query neighbor count / mean / second moments
-# are ONE more MXU contraction per tile pair:
-#
-#     moments[c, q] = sum_r (d2[r, q] <= rho^2) * mom[c, r]
-#
-# with mom rows (1, x, y, z, xx, xy, xz, yy, yz, zz) built in-kernel from
-# the (centered) reference block.  The moment contraction runs at HIGHEST
-# (true f32) precision: covariances of ~0.2 m neighborhoods are recovered
-# from second moments of ~30 m coordinates, so bf16-class product rounding
-# would exceed the covariance scale itself.
-#
-# Semantics: fixed-RADIUS neighborhoods instead of the reference's
-# kSearch(6) (DmsaSlam.h:557-568).  On a grid-downsampled cloud the 6-NN
-# distance is ~1-2 grid steps, so radius = 2 * grid captures a superset;
-# the consumers (normal-split direction buckets, plane-visibility dot
-# products) are direction-level robust.  tests/test_normals_bruteforce.py
-# bounds the angular deviation vs the exact-kNN oracle.
-
-_TNM = 512  # ref tile for the moments kernel (d2 + products stay in VMEM)
-
-
-def _moments_kernel(rho2_ref, refA_ref, qA_ref, qn_ref, out_ref):
-    import jax.experimental.pallas as pl
-
-    k = pl.program_id(1)
-    rho2 = rho2_ref[0, 0]  # SMEM scalar (the radius is a traced value)
-
-    @pl.when(k == 0)
-    def _():
-        out_ref[:] = jnp.zeros_like(out_ref)
-
-    rh, rl = mxu.split2(refA_ref[:])
-    qh, ql = mxu.split2(qA_ref[:])
-    dims = ((0,), (0,))
-    d2 = (
-        (mxu.dot_default(rh, qh, dims) + mxu.dot_default(rl, ql, dims))
-        + (mxu.dot_default(rh, ql, dims) + mxu.dot_default(rl, qh, dims))
-        + qn_ref[:]
-    )
-    incid = (d2 <= rho2).astype(jnp.float32)  # [TN, TQ]
-
-    r = -0.5 * refA_ref[0:3]  # centered ref coords (refA carries -2r)
-    rx, ry, rz = r[0:1], r[1:2], r[2:3]
-    mom = jnp.concatenate(
-        [
-            jnp.ones_like(rx), rx, ry, rz,
-            rx * rx, rx * ry, rx * rz, ry * ry, ry * rz, rz * rz,
-            jnp.zeros((6, rx.shape[1]), jnp.float32),
-        ],
-        axis=0,
-    )  # [16, TN]
-    out_ref[:] += jax.lax.dot_general(
-        mom, incid, (((1,), (0,)), ((), ())), preferred_element_type=jnp.float32,
-        precision=jax.lax.Precision.HIGHEST,  # true f32: see module note
-    )
-
-
-def radius_neighbor_moments(pts, valid, radius):
-    """Per-point neighbor count/mean/2nd-moments within `radius` (self
-    included), exact f32, via the tiled incidence contraction above.
-
-    Returns (count [N], mean [N, 3], cov [N, 3, 3]) in the ORIGINAL frame;
-    rows with count < 2 get zero covariance.
-    """
-    import jax.experimental.pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    n = pts.shape[0]
-    refA, qA, qn = _prep(pts, valid, pts)
-    refc = jnp.sum(jnp.where(valid[:, None], pts, 0.0), axis=0) / jnp.maximum(
-        jnp.sum(valid), 1
-    )
-    rho2 = jnp.asarray(radius, jnp.float32).reshape(1, 1) ** 2
-    n_ref_tiles = refA.shape[1] // _TNM
-    n_q_tiles = qA.shape[1] // _TQ
-    with jax.enable_x64(False):
-        out = pl.pallas_call(
-            _moments_kernel,
-            grid=(n_q_tiles, n_ref_tiles),
-            in_specs=[
-                pl.BlockSpec(memory_space=pltpu.SMEM),
-                pl.BlockSpec((4, _TNM), lambda j, k: (0, k), memory_space=pltpu.VMEM),
-                pl.BlockSpec((4, _TQ), lambda j, k: (0, j), memory_space=pltpu.VMEM),
-                pl.BlockSpec((1, _TQ), lambda j, k: (0, j), memory_space=pltpu.VMEM),
-            ],
-            out_specs=pl.BlockSpec((16, _TQ), lambda j, k: (0, j), memory_space=pltpu.VMEM),
-            out_shape=jax.ShapeDtypeStruct((16, n_q_tiles * _TQ), jnp.float32),
-            cost_estimate=pl.CostEstimate(
-                flops=2 * (4 * 4 + 16) * refA.shape[1] * qA.shape[1],
-                bytes_accessed=4 * (n_q_tiles * refA.size + n_ref_tiles * qA.size),
-                transcendentals=0,
-            ),
-            interpret=not _use_pallas(),
-        )(rho2, refA, qA, qn)
-    out = out[:, :n]
-    cnt = out[0]
-    safe = jnp.maximum(cnt, 1.0)
-    mean_c = out[1:4].T / safe[:, None]  # centered frame
-    m2 = out[4:10].T  # xx, xy, xz, yy, yz, zz
-    mm_ = jnp.stack(
-        [
-            m2[:, 0] - cnt * mean_c[:, 0] * mean_c[:, 0],
-            m2[:, 1] - cnt * mean_c[:, 0] * mean_c[:, 1],
-            m2[:, 2] - cnt * mean_c[:, 0] * mean_c[:, 2],
-            m2[:, 3] - cnt * mean_c[:, 1] * mean_c[:, 1],
-            m2[:, 4] - cnt * mean_c[:, 1] * mean_c[:, 2],
-            m2[:, 5] - cnt * mean_c[:, 2] * mean_c[:, 2],
-        ],
-        axis=1,
-    ) / jnp.maximum(cnt - 1.0, 1.0)[:, None]
-    cov = jnp.stack(
-        [
-            jnp.stack([mm_[:, 0], mm_[:, 1], mm_[:, 2]], axis=1),
-            jnp.stack([mm_[:, 1], mm_[:, 3], mm_[:, 4]], axis=1),
-            jnp.stack([mm_[:, 2], mm_[:, 4], mm_[:, 5]], axis=1),
-        ],
-        axis=1,
-    )
-    cov = jnp.where((cnt >= 2.0)[:, None, None], cov, 0.0)
-    return cnt, mean_c + refc[None, :], cov

@@ -1,11 +1,11 @@
 """Voxel-grid binning and random-grid downsampling on device.
 
-TPU-native replacement for the reference's PCL octree usage: the octree
+Tree-free replacement for the reference's PCL octree usage: the octree
 build per optimizer iteration (DmsaOptimizer.h:275-350) and the
 random-point-per-voxel downsampling (helpers.h:67-182) both become
 sort + segment reductions over packed voxel keys — fixed shapes, no trees.
 
-Voxel identity is a pair of int32 keys (no int64 needed on TPU):
+Voxel identity is a pair of int32 keys (no int64 keys):
 key_hi = (ix << 16) | iy, key_lo = iz, with grid coordinates offset into
 [0, 2^15).  Points are lexsorted by (hi, lo); contiguous runs of equal keys
 are the voxel cells.  Invalid (masked) points get the maximal key so they
@@ -110,7 +110,7 @@ class RunBinning(NamedTuple):
 
 
 def bin_runs(points, mask, grid_size, channel=None, payload=None):
-    """Bin points into voxel runs (TPU fast path: sort + cummax/cummin only).
+    """Bin points into voxel runs (sort + cummax/cummin only).
 
     Replaces the segment-id formulation for the optimizer's per-iteration
     cell builds: run boundaries come from one forward cummax and one reverse
@@ -118,8 +118,7 @@ def bin_runs(points, mask, grid_size, channel=None, payload=None):
 
     `payload` (optional [N, W] f32) rides THROUGH the sort as extra
     operands of lax.sort, so callers get their per-point data already in
-    sorted order without separate permutation gathers (individual [N]-row
-    gathers are latency-bound on TPU and dominated the optimizer profile).
+    sorted order without separate per-row permutation gathers.
     Returns RunBinning, or (RunBinning, payload_sorted) when payload given.
     """
     n = points.shape[0]
@@ -235,10 +234,9 @@ def downsample_compact(points, mask, rings, grid_size, key, cap: int):
 def count_voxels_ladder(points, mask, grids):
     """Occupied-voxel counts at ALL ladder grid sizes in ONE key-only sort.
 
-    Returns [len(grids)] i32.  count_voxels_approx's per-grid scatter cost
-    ~0.9 ms each at 131k points on TPU (scatters serialize); sorting the
-    concatenated (ladder_id << 28 | voxel_hash) keys costs ~0.5 ms TOTAL
-    and counts distinct keys by run boundaries.  28-bit hashes collide
+    Returns [len(grids)] i32.  One sort of the concatenated
+    (ladder_id << 28 | voxel_hash) keys replaces a scatter-based occupancy
+    count per grid, and counts distinct keys by run boundaries.  28-bit hashes collide
     less than the scatter table's 18 bits, so counts sit CLOSER to the
     exact octree counts of the reference ladder (DmsaSlam.h:570-591).
     """

@@ -1,12 +1,12 @@
-"""Multi-host launch helpers.
+"""Multi-process launch helpers.
 
-On a TPU pod slice each host runs this same program;
-`jax.distributed.initialize` wires the hosts into one runtime so
-`jax.devices()` spans the slice and `Mesh`/`shard_map` collectives ride
-ICI between chips and DCN between hosts.  The reference has no multi-host
-story at all (single ROS process); here the distributed keyframe
-adjustment (parallel.keyframe_dist) is the component that scales across
-hosts, with scan ingestion done per-host on disjoint bag segments.
+One process can drive every card of a host: JAX sees all local GPUs, and
+`Mesh`/`shard_map` collectives run over NCCL, on NVLink between the cards
+of one host.  Several processes (one per host, or one per card) join one
+runtime through `jax.distributed.initialize` with an explicit coordinator,
+so `jax.devices()` spans them all.  The reference has no multi-host story
+at all (single ROS process); here the distributed keyframe adjustment
+(parallel.spatial) is the component that spans devices.
 """
 
 import logging
@@ -21,11 +21,12 @@ def initialize_distributed(
     num_processes: Optional[int] = None,
     process_id: Optional[int] = None,
 ):
-    """Initialize jax.distributed from args or the standard env variables
-    (JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES / JAX_PROCESS_ID; on Cloud
-    TPU pods jax.distributed.initialize() autodetects everything).
+    """Join a multi-process runtime from args or the standard env variables
+    (JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES / JAX_PROCESS_ID).
 
-    Safe to call on a single host (no-op without coordinator info).
+    Without a coordinator address the process stays single-process over
+    its local devices: nothing is auto-detected, and a failure to join a
+    given coordinator raises.
     """
     import jax
 
@@ -33,18 +34,8 @@ def initialize_distributed(
     num_processes = num_processes or _int_env("JAX_NUM_PROCESSES")
     process_id = process_id if process_id is not None else _int_env("JAX_PROCESS_ID")
 
-    if coordinator_address is None and num_processes is None:
-        try:
-            # Cloud TPU pod autodetection path
-            jax.distributed.initialize()
-            log.info(
-                "jax.distributed initialized: process %d/%d, %d global devices",
-                jax.process_index(),
-                jax.process_count(),
-                len(jax.devices()),
-            )
-        except Exception:
-            log.info("single-process mode (%d local devices)", len(jax.devices()))
+    if coordinator_address is None:
+        log.info("single-process mode (%d local devices)", len(jax.local_devices()))
         return
 
     jax.distributed.initialize(

@@ -1,11 +1,11 @@
 """Distributed DMSA: point-sharded Gauss-Newton over a device mesh.
 
 The reference is strictly single-process (SURVEY §2: OpenMP only).  The
-TPU-native scaling axis is the point/keyframe dimension: shard the global
+scaling axis here is the point/keyframe dimension: shard the global
 points of a problem across a `jax.sharding.Mesh`, build Gaussian cells with
 a COLLISION-HASHED table (no global sort, so per-device work stays local),
 reduce per-cell statistics and the small Gauss-Newton system with `psum`
-over ICI, and solve the (P x P) pose system replicated — the
+over the mesh, and solve the (P x P) pose system replicated — the
 Schur-complement-style reduction recommended in SURVEY §7.
 
 Differences vs the single-chip path (ops.gaussians):

@@ -1,28 +1,20 @@
 """Spatially-owned distributed DMSA: shuffle points to voxel owners, run
-the single-chip kernel stack per shard, reduce only the normal equations.
+the single-device cell build per shard, reduce only the normal equations.
 
-The r3 point-sharded design (parallel.sharded) reduces TABLE-sized arrays
-over the mesh — and its Jacobian tangents ride through those reductions,
-so one Gauss-Newton iteration at flagship shapes moves ~630 MB of
-collective payload (tools/comm_analysis.py; DCN efficiency ~9% at 2
-hosts).  The communication-optimal formulation assigns each VOXEL an
-owner device:
+The point-sharded design (parallel.sharded) reduces TABLE-sized arrays
+over the mesh, and its Jacobian tangents ride through those reductions.
+This formulation assigns each VOXEL an owner device instead:
 
   1. per iteration, each device transforms its resident points and sends
      every point to the device that owns its voxel — one all_to_all of
      the point payload (~n_local * 24 B per device);
-  2. the owner holds ALL members of its cells, so the entire single-chip
-     machinery applies UNCHANGED per shard: exact sorted cell build,
-     packed layout, and on TPU the fused Pallas kernels
-     (ops.fused_residuals) — no hash-table approximation, no
-     owner-election rounds;
+  2. the owner holds ALL members of its cells, so the single-device
+     machinery applies UNCHANGED per shard: exact sorted cell build and
+     the packed tabular layout (ops.fused_residuals) — no hash-table
+     approximation, no owner-election rounds;
   3. the only remaining collectives are the [P+1, P+1] normal-equation
      block and the K line-search scalars (a few hundred KB per iteration
      at P = 282).
-
-Per iteration this is ~1 MB of collective traffic instead of ~630 MB —
-the design that actually meets the >= 70% multi-host efficiency target on
-DCN (see SCALING.md).
 
 Approximation budget: the all_to_all uses fixed-capacity receive buckets
 (cap_factor x the balanced share per sender-receiver pair).  Points
@@ -160,7 +152,7 @@ def _cached_spatial_optimize(
             # table (bit-identical to the sender's expression, so the
             # received point lands in exactly the voxel its owner hash was
             # computed from) — world coordinates never ride the
-            # all_to_all, cutting its payload by 1/3 (r5; SCALING.md)
+            # all_to_all, cutting its payload by 1/3
             payload = jnp.concatenate(
                 [
                     flat_pts,
@@ -182,10 +174,9 @@ def _cached_spatial_optimize(
                     rot.quat_rotate(tab[:, 0:4][r_tidx], r_xs.astype(tab.dtype))
                     + tab[:, 4:7][r_tidx]
                 )
-                build = fr.build_packed if fr._use_pallas() else fr.build_packed_ref
-                pk, nv, _ = build(
+                pk, nv, _ = fr.build_packed_ref(
                     r_world, rmask, r_rings, r_xs, r_tidx, grid, min_points,
-                    split_ids=r_split, tab=tab,
+                    split_ids=r_split,
                 )
                 packs.append(pk)
                 nvs.append(nv)
@@ -198,8 +189,7 @@ def _cached_spatial_optimize(
             # normal equations: local Hext over owned cells, one tiny psum
             eye = jnp.eye(num_params, dtype=pdt)
             dtab, j_extra = jax.vmap(lin)(eye)
-            gn = fr.gn_system if fr._use_pallas() else fr.gn_system_ref
-            hext = jax.lax.psum(gn(tab, dtab, packed), axis)
+            hext = jax.lax.psum(fr.gn_system_ref(tab, dtab, packed), axis)
             H = hext[:num_params, :num_params].astype(pdt)
             gvec = hext[:num_params, num_params].astype(pdt)
             je = j_extra.astype(pdt)
@@ -220,8 +210,7 @@ def _cached_spatial_optimize(
                 [params[None, :], params[None, :] + ks[:, None] * step[None, :]], axis=0
             )
             tabs, extras = jax.vmap(tab_fn)(cand)
-            ce = fr.cand_errors if fr._use_pallas() else fr.cand_errors_ref
-            errs = jax.lax.psum(ce(tabs, packed).astype(pdt), axis)
+            errs = jax.lax.psum(fr.cand_errors_ref(tabs, packed).astype(pdt), axis)
             errs = errs + jnp.sum(extras.astype(pdt) ** 2, axis=1)
             best = jnp.argmin(errs)
             # too-few-gaussians REJECTS this iteration's step, exactly like

@@ -1,4 +1,4 @@
-"""Live map / trajectory viewer — the RViz-equivalent for headless TPU runs.
+"""Live map / trajectory viewer — the RViz-equivalent for headless runs.
 
 The reference publishes the global map, current submap, pose, and keyframe
 trajectory to RViz topics on every scan (reference:

@@ -42,9 +42,8 @@ def preprocess_scan(
     from dmsa_lidar_slam_tpu.ops import voxel
 
     # approximate (hashed) counts for the grid decision, all four ladder
-    # levels in ONE key-only sort (per-grid scatter occupancy cost ~0.9 ms
-    # EACH at OS-128 raw scale); the actual downsampling below does the
-    # one real payload sort
+    # levels in ONE key-only sort instead of a scatter occupancy count per
+    # level; the actual downsampling below does the one real payload sort
     counts = voxel.count_voxels_ladder(raw_pts, raw_mask, GRID_LADDER)
     ladder = jnp.asarray(GRID_LADDER, dtype=raw_pts.dtype)
     # first grid (coarse->fine) with count >= max_num, else the finest

@@ -119,7 +119,7 @@ def _process_bags(slam, cfg, topics, max_scans, viz_every, live=None):
 
 
 def main(argv=None):
-    parser = argparse.ArgumentParser(description="DMSA LiDAR SLAM (TPU-native)")
+    parser = argparse.ArgumentParser(description="DMSA LiDAR SLAM")
     parser.add_argument("configs", nargs="+", help="YAML config overlay paths (in order)")
     parser.add_argument("--max-scans", type=int, default=None)
     parser.add_argument("--result-dir", default=None)

@@ -1,6 +1,6 @@
 """Continuous-time sliding-window trajectory — the window problem adapter.
 
-TPU-native equivalent of the reference's ContinuousTrajectory (reference:
+Fixed-shape equivalent of the reference's ContinuousTrajectory (reference:
 include/DMSA/ContinuousTrajectory.h): a handful of control poses over the
 window, a dense pose table at ~dt_res, barycentric-rational interpolation of
 translations + slerp of orientations onto the dense grid, per-point
@@ -15,7 +15,7 @@ Control stamps sit exactly on dense samples: (n_dense - 1) must be
 divisible by (n_ctrl - 1), so control-interval boundaries are static
 indices and all IMU intervals have equal static length (vmap-able).
 
-Pose math runs in the pose dtype (f64 on CPU / f32 on TPU — see
+Pose math runs in the pose dtype (f64 on CPU / f32 on GPU — see
 utils.dtypes); the per-point deskew runs in f32 like the reference's
 Matrix4f dense transforms (ContinuousTrajectory.h:31).
 """
@@ -106,8 +106,8 @@ def _dense_poses_jit(shapes: WindowShapes):
 
 
 def dense_poses_jit(params, data, shapes: WindowShapes):
-    """jit-compiled dense_poses (per-scan host path must not run eagerly —
-    eager dispatch is pathological on remote TPU backends)."""
+    """jit-compiled dense_poses (the per-scan host path must not run
+    eagerly: op-by-op dispatch costs one launch per op)."""
     return _dense_poses_jit(shapes)(params, data)
 
 
@@ -247,45 +247,6 @@ def make_structured(shapes: WindowShapes, use_imu: bool):
         return out, contract, j_extra.T  # J_extra [M,P]
 
     return structured
-
-
-@lru_cache(maxsize=None)
-def make_tabular(shapes: WindowShapes, use_imu: bool):
-    """Tabular-problem adapter for the fused Pallas residual kernels
-    (ops.fused_residuals; consumed by dmsa.optimizer's tabular path).
-
-    The window problem in table form: world point j =
-    quat_rotate(q_dense[idx_j], x_j) + t_dense[idx_j]
-    (ContinuousTrajectory.h:129-156), with static map points pinned to an
-    appended identity row so the kernels need no special case.
-    """
-    from dmsa_lidar_slam_tpu.dmsa.optimizer import TabularProblem
-
-    d = shapes.n_dense
-
-    def tables(params, data: WindowData):
-        chain, gp, q_dense, d_transl = dense_pose_tables(params, data, shapes)
-        if use_imu:
-            extra = imu_residuals(chain, gp, d_transl, data, shapes)
-        else:
-            extra = jnp.zeros((0,), dtype=params.dtype)
-        tab = jnp.concatenate(
-            [q_dense, d_transl, jnp.zeros((d, 1), q_dense.dtype)], axis=1
-        ).astype(jnp.float32)
-        ident = jnp.zeros((1, 8), jnp.float32).at[0, 0].set(1.0)
-        return jnp.concatenate([tab, ident], axis=0), extra
-
-    def point_arrays(data: WindowData):
-        xs = jnp.concatenate([data.local_pts, data.static_pts], axis=0)
-        tidx = jnp.concatenate(
-            [
-                data.pt_tform_idx.astype(jnp.int32),
-                jnp.full((shapes.n_static,), d, jnp.int32),
-            ]
-        )
-        return xs.astype(jnp.float32), tidx
-
-    return TabularProblem(n_table=d + 1, tables=tables, point_arrays=point_arrays)
 
 
 def imu_residuals(chain, gp, d_transl, data: WindowData, shapes: WindowShapes):

@@ -1,13 +1,11 @@
-"""Fused Pallas residual kernels vs the existing XLA residual path.
+"""Tabular Gauss-Newton form (ops.fused_residuals) vs the cell-residual
+path.
 
-Validates (on CPU: the Pallas kernels run in interpret mode automatically):
+Validates:
   - cand_errors_ref == sum(cell_residuals^2) per candidate (math identity)
-  - Pallas cand_errors == cand_errors_ref (kernel correctness, including
-    runs that span tile boundaries via the carry)
   - gn_system_ref == autodiff J^T J / J^T e / e^T e (math identity)
-  - Pallas gn_system == gn_system_ref
   - optimize(tabular_fn) converges like optimize(structured_fn) on a
-    keyframe submap problem
+    keyframe submap problem, and honors the reference's stop criteria
 """
 
 import numpy as np
@@ -73,10 +71,6 @@ def test_cand_errors_matches_cell_residuals(giant_cell):
         expect = float(jnp.sum(res.astype(jnp.float64) ** 2))
         np.testing.assert_allclose(float(ref[k]), expect, rtol=2e-4)
 
-    # Pallas kernel (interpret mode on CPU) == reference
-    out = fr.cand_errors(jnp.asarray(tabs), packed)
-    np.testing.assert_allclose(np.asarray(out), np.asarray(ref), rtol=2e-4)
-
 
 @pytest.mark.parametrize("giant_cell", [False, True])
 def test_gn_system_matches_autodiff(giant_cell):
@@ -88,9 +82,6 @@ def test_gn_system_matches_autodiff(giant_cell):
     dtabs[:, -1, :] = 0.0  # identity row is parameter-free
 
     hext_ref = fr.gn_system_ref(jnp.asarray(tab0), jnp.asarray(dtabs), packed)
-    hext_nomean = fr.gn_system_ref(
-        jnp.asarray(tab0), jnp.asarray(dtabs), packed, include_mean_term=False
-    )
 
     # autodiff oracle: residual vector as a function of theta (tab-linear)
     def res_vec(theta):
@@ -109,49 +100,9 @@ def test_gn_system_matches_autodiff(giant_cell):
         np.asarray(hext_ref), np.asarray(hext_ad), rtol=2e-3, atol=2e-4
     )
 
-    # Pallas kernel (interpret mode) == reference WITHOUT the mean term
-    # (the kernel omits it: at the linearization point s_bar is only the
-    # f32 error of the stored cell mean).  The kernel's Jacobian-gather and
-    # run-sum contractions run in bf16 (r5: the f32 gather was ~50% of the
-    # kernel at P=282), so H/g agree to bf16 element rounding: ~1% of the
-    # matrix scale.  The GN direction this feeds tolerates that — step
-    # acceptance uses cand_errors, which stays f32.
-    hext = fr.gn_system(jnp.asarray(tab0), jnp.asarray(dtabs), packed)
-    scale = float(np.max(np.abs(np.asarray(hext_nomean))))
-    np.testing.assert_allclose(
-        np.asarray(hext), np.asarray(hext_nomean), rtol=0.03, atol=0.01 * scale
-    )
-
-
-def test_gn_mean_term_negligible_with_kernel_build():
-    """The dropped (wL s_bar)^T B correction is bounded by the stored-mean
-    rounding.  With build_packed's run-local-origin means (the production
-    pairing on TPU) the with/without difference on H stays ~1e-4 relative;
-    the global-cumsum test build in test_gn_system_matches_autodiff shows
-    why the EXACT reference keeps the term."""
-    rng, xs, mask, rings, tidx, tab0, cells, _, rand_tab = _problem(seed=3)
-    world = rot.quat_rotate(jnp.asarray(tab0[tidx, 0:4]), jnp.asarray(xs)) + jnp.asarray(
-        tab0[tidx, 4:7]
-    )
-    pk, _, _ = fr.build_packed(
-        world.astype(jnp.float32), jnp.asarray(mask), jnp.asarray(rings),
-        jnp.asarray(xs), jnp.asarray(tidx), 1.0, 4,
-    )
-    p_dim = 6
-    dtabs = (0.1 * rng.standard_normal((p_dim, tab0.shape[0], 8))).astype(np.float32)
-    dtabs[:, -1, :] = 0.0
-    h_with = fr.gn_system_ref(jnp.asarray(tab0), jnp.asarray(dtabs), pk)
-    h_without = fr.gn_system_ref(
-        jnp.asarray(tab0), jnp.asarray(dtabs), pk, include_mean_term=False
-    )
-    scale = float(jnp.max(jnp.abs(h_with)))
-    np.testing.assert_allclose(
-        np.asarray(h_with), np.asarray(h_without), atol=2e-3 * scale
-    )
-
 
 def test_optimize_tabular_matches_structured_keyframe():
-    """End-to-end: the tabular (fused-kernel) optimizer path converges to
+    """End-to-end: the tabular optimizer path converges to
     the same submap solution as the structured path."""
     from dmsa_lidar_slam_tpu.dmsa import optimizer as opt
     from dmsa_lidar_slam_tpu.map import keyframes as kfm
@@ -223,94 +174,6 @@ def test_optimize_tabular_matches_structured_keyframe():
     assert abs(dt - ds) < 0.35 * d0
 
 
-@pytest.mark.parametrize("giant_cell,with_obs", [(False, False), (True, True)])
-def test_build_packed_matches_ref(giant_cell, with_obs):
-    """The build kernel (interpret mode on CPU) reproduces build_cells +
-    pack_rows: same packed layout, same acceptance, same normalization.
-    f32 summation order differs, so stats tolerances are loose where the
-    eigenvalue floor amplifies covariance rounding."""
-    rng = np.random.default_rng(7)
-    n = 1024
-    xs = rng.uniform(0, 4, size=(n, 3)).astype(np.float32)
-    if giant_cell:
-        xs[: n // 2] = 0.5 + 0.2 * rng.standard_normal((n // 2, 3)).astype(np.float32)
-    mask = rng.uniform(size=n) > 0.1
-    rings = rng.integers(0, 8, size=n).astype(np.int32)
-    tidx = rng.integers(0, 33, size=n).astype(np.int32)
-    obs = rng.uniform(0.5, 2.0, size=n).astype(np.float32) if with_obs else None
-    split = rng.integers(0, 4, size=n).astype(np.int32) if with_obs else None
-    world = jnp.asarray(xs + 0.1)  # any world positions; binning input
-
-    args = (world, jnp.asarray(mask), jnp.asarray(rings), jnp.asarray(xs),
-            jnp.asarray(tidx), 1.0, 4)
-    kw = dict(obs_weight=None if obs is None else jnp.asarray(obs),
-              split_ids=None if split is None else jnp.asarray(split))
-    pk, nv, nr = fr.build_packed(*args, **kw)
-    pk_ref, nv_ref, nr_ref = fr.build_packed_ref(*args, **kw)
-
-    assert int(nv) == int(nv_ref)
-    assert int(nr) == int(nr_ref)
-    pk = np.asarray(pk)
-    pk_ref = np.asarray(pk_ref)
-    # exact rows: xs, w, tidx, newc
-    np.testing.assert_array_equal(pk[12:15], pk_ref[12:15])
-    np.testing.assert_allclose(pk[0:3], pk_ref[0:3], atol=1e-6)
-    # invn_end: same end rows, same counts
-    np.testing.assert_allclose(pk[15], pk_ref[15], atol=1e-6)
-    # mu0 (only meaningful where lamw6 != 0, i.e. valid cells)
-    sel = np.abs(pk_ref[6:12]).sum(axis=0) > 0
-    np.testing.assert_allclose(pk[3:6, sel], pk_ref[3:6, sel], atol=1e-4)
-    # lamw6: floored-inverse amplifies f32 covariance rounding near the
-    # floor; compare with a scale-aware tolerance
-    scale = np.abs(pk_ref[6:12, sel]).max()
-    np.testing.assert_allclose(pk[6:12, sel], pk_ref[6:12, sel], atol=0.02 * scale)
-    # and the residuals they induce agree tightly in aggregate
-    tabs = jnp.asarray(np.stack([np.concatenate([
-        np.tile(np.array([[1, 0, 0, 0, 0.1, 0, 0, 0]], np.float32), (33, 1)),
-        np.array([[1, 0, 0, 0, 0, 0, 0, 0]], np.float32)])]))
-    e_k = fr.cand_errors_ref(tabs, jnp.asarray(pk))
-    e_r = fr.cand_errors_ref(tabs, jnp.asarray(pk_ref))
-    np.testing.assert_allclose(np.asarray(e_k), np.asarray(e_r), rtol=0.02)
-
-
-@pytest.mark.parametrize("giant_cell", [False, True])
-def test_build_packed_tab_path_matches_ref(giant_cell):
-    """The compact build path (tab given: 6-operand sort, world points
-    recomputed in-kernel from the pose table, tidx/ring/mask packed into
-    one enc lane) reproduces build_cells + pack_rows when the caller's
-    world points come from the same table math."""
-    rng, xs, mask, rings, tidx, tab0, cells, packed_old, rand_tab = _problem(
-        seed=5, giant_cell=giant_cell
-    )
-    from dmsa_lidar_slam_tpu.core import rotations as rot
-
-    world = (
-        rot.quat_rotate(jnp.asarray(tab0[tidx, 0:4]), jnp.asarray(xs))
-        + jnp.asarray(tab0[tidx, 4:7])
-    ).astype(jnp.float32)
-    args = (world, jnp.asarray(mask), jnp.asarray(rings), jnp.asarray(xs),
-            jnp.asarray(tidx), 1.0, 4)
-    pk, nv, nr = fr.build_packed(*args, tab=jnp.asarray(tab0))
-    pk_ref, nv_ref, nr_ref = fr.build_packed_ref(*args)
-
-    assert int(nv) == int(nv_ref)
-    assert int(nr) == int(nr_ref)
-    pk = np.asarray(pk)
-    pk_ref = np.asarray(pk_ref)
-    np.testing.assert_array_equal(pk[12:15], pk_ref[12:15])  # w, tidx, newc
-    np.testing.assert_allclose(pk[0:3], pk_ref[0:3], atol=1e-6)  # xs
-    np.testing.assert_allclose(pk[15], pk_ref[15], atol=1e-6)  # invn_end
-    sel = np.abs(pk_ref[6:12]).sum(axis=0) > 0
-    np.testing.assert_allclose(pk[3:6, sel], pk_ref[3:6, sel], atol=2e-4)
-    scale = np.abs(pk_ref[6:12, sel]).max()
-    np.testing.assert_allclose(pk[6:12, sel], pk_ref[6:12, sel], atol=0.02 * scale)
-    # end-to-end: residuals from both builds agree
-    tabs = np.stack([tab0])
-    e_k = fr.cand_errors_ref(jnp.asarray(tabs), jnp.asarray(pk))
-    e_r = fr.cand_errors_ref(jnp.asarray(tabs), jnp.asarray(pk_ref))
-    np.testing.assert_allclose(np.asarray(e_k), np.asarray(e_r), rtol=0.02)
-
-
 def _tab_problem_small():
     """Tiny keyframe tabular problem for stop-criteria probes."""
     from dmsa_lidar_slam_tpu.map import keyframes as kfm
@@ -347,7 +210,7 @@ def _tab_problem_small():
 
 
 def test_tabular_stop_criteria_probes():
-    """The kernel-path optimizer honors the reference's abort semantics
+    """The tabular optimizer path honors the reference's abort semantics
     (DmsaOptimizer.h:89-143): too-few gaussians and NaN inputs leave the
     params unchanged with the matching stop reason (verify-skill probes,
     now on the tabular path)."""

@@ -9,12 +9,7 @@ from dmsa_lidar_slam_tpu.io import native as io_native
 from dmsa_lidar_slam_tpu.io import pointcloud2 as pc2
 from dmsa_lidar_slam_tpu.io import rosbag
 from dmsa_lidar_slam_tpu.io.pcd import load_pcd, save_pcd
-
-
-def serialize_header(stamp: float, frame_id=b"map") -> bytes:
-    secs = int(stamp)
-    nsecs = int(round((stamp - secs) * 1e9))
-    return struct.pack("<III", 0, secs, nsecs) + struct.pack("<I", len(frame_id)) + frame_id
+from dmsa_lidar_slam_tpu.io.synthetic_bag import serialize_header, serialize_imu
 
 
 def make_ouster_cloud(rng, n=64, stamp=1234.5):
@@ -50,17 +45,6 @@ def make_ouster_cloud(rng, n=64, stamp=1234.5):
     raw += struct.pack("<I", len(buf)) + bytes(buf)
     raw += struct.pack("<B", 1)  # is_dense
     return raw, pts, t_ns, rings
-
-
-def serialize_imu(stamp, ang, acc) -> bytes:
-    raw = serialize_header(stamp, b"imu")
-    raw += struct.pack("<4d", 0, 0, 0, 1)
-    raw += struct.pack("<9d", *([0.0] * 9))
-    raw += struct.pack("<3d", *ang)
-    raw += struct.pack("<9d", *([0.0] * 9))
-    raw += struct.pack("<3d", *acc)
-    raw += struct.pack("<9d", *([0.0] * 9))
-    return raw
 
 
 def test_parse_pointcloud2_ouster(rng):

@@ -5,111 +5,19 @@ Closes the CLI -> bag decode -> pipeline -> Poses.txt/PointCloud.pcd seam
 the host-orchestrated and the fused device-resident pipelines.
 """
 
-import struct
-
-import numpy as np
 import pytest
 
-from dmsa_lidar_slam_tpu.io import rosbag
-from dmsa_lidar_slam_tpu.io.pcd import load_pcd
-from dmsa_lidar_slam_tpu.io.synthetic import SyntheticSequence, ate_rmse
+from dmsa_lidar_slam_tpu.io.synthetic_bag import read_outputs, runner_overrides, write_synthetic_bag
 from dmsa_lidar_slam_tpu.pipeline import runner
-
-from tests.test_io import serialize_header, serialize_imu
-
-_OUSTER_FIELDS = [
-    ("x", 0, 7, 1),
-    ("y", 4, 7, 1),
-    ("z", 8, 7, 1),
-    ("intensity", 12, 7, 1),
-    ("t", 16, 6, 1),
-    ("reflectivity", 20, 4, 1),
-    ("ring", 22, 2, 1),
-]
-_POINT_STEP = 24
-
-
-def serialize_ouster_scan(pts, stamps, rings):
-    """PointCloud2 bytes in the ouster layout: header stamp = scan start,
-    per-point t = ns offset (dmsa_slam_ros.cpp ouster branch)."""
-    t0 = float(stamps.min())
-    n = len(pts)
-    buf = bytearray(n * _POINT_STEP)
-    t_ns = np.round((stamps - t0) * 1e9).astype(np.uint32)
-    for i in range(n):
-        struct.pack_into("<fff", buf, i * _POINT_STEP, *pts[i])
-        struct.pack_into("<I", buf, i * _POINT_STEP + 16, t_ns[i])
-        struct.pack_into("<B", buf, i * _POINT_STEP + 22, int(rings[i]) & 0xFF)
-    raw = serialize_header(t0)
-    raw += struct.pack("<II", 1, n)
-    raw += struct.pack("<I", len(_OUSTER_FIELDS))
-    for name, off, dt, cnt in _OUSTER_FIELDS:
-        nb = name.encode()
-        raw += struct.pack("<I", len(nb)) + nb + struct.pack("<IBI", off, dt, cnt)
-    raw += struct.pack("<B", 0)
-    raw += struct.pack("<II", _POINT_STEP, n * _POINT_STEP)
-    raw += struct.pack("<I", len(buf)) + bytes(buf)
-    raw += struct.pack("<B", 1)
-    return raw
-
-
-def write_synthetic_bag(path, n_scans=12, pts_per_scan=900, seed=7):
-    """Bag with interleaved IMU + ouster scans from the synthetic sequence."""
-    seq = SyntheticSequence(rng=np.random.default_rng(seed), noise_std=0.01, room_scale=0.45)
-    msgs = []
-    imu_cursor = seq.t_start - 0.2
-    for i in range(n_scans):
-        t_end = seq.t_start + (i + 1) * seq.sweep
-        ts, acc, gyr = seq.imu_samples(imu_cursor, t_end)
-        for j in range(len(ts)):
-            msgs.append(("/imu", float(ts[j]), serialize_imu(float(ts[j]), gyr[j], acc[j])))
-        imu_cursor = t_end
-        pts, stamps, rings = seq.scan(i, pts_per_scan)
-        msgs.append(("/points", float(stamps.min()), serialize_ouster_scan(pts, stamps, rings)))
-    msgs.sort(key=lambda m: m[1])
-    rosbag.write_bag(
-        path, msgs, {"/points": "sensor_msgs/PointCloud2", "/imu": "sensor_msgs/Imu"}
-    )
-    return seq
-
-
-def _overrides(bag_path, result_dir, use_imu):
-    return {
-        "bag_dirs": [bag_path],
-        "lidar_topic": "/points",
-        "imu_topic": "/imu",
-        "sensor": "ouster",
-        "result_dir": result_dir,
-        "use_imu": use_imu,
-        "n_clouds": 3,
-        "max_num_points_per_scan": 700,
-        "min_distance_ds": 3.0,
-        "min_dist": 0.05,
-        "num_iter_sliding_window_optim": 8,
-        "num_iter_keyframe_optim": 5,
-        "min_num_points_gauss": 5,
-        "min_num_points_gauss_key": 5,
-        "closest_k_keyframes_as_static_points": 3,
-        "last_n_keyframes_for_optim": 10,
-        "dist_new_keyframe": 0.3,
-        "n_dense": 251,
-        "static_points_cap": 4096,
-        "keyframe_points_cap": 2048,
-        "raw_scan_cap": 1024,
-    }
 
 
 def check_outputs(tmp_path, seq, slam):
-    poses = (tmp_path / "Poses.txt").read_text().strip().splitlines()
-    assert len(poses) >= 3
-    assert all(len(l.split()) == 8 for l in poses)
-    stamps = np.array([float(l.split()[0]) for l in poses])
-    positions = np.array([[float(v) for v in l.split()[1:4]] for l in poses])
-    assert np.all(np.diff(stamps) >= 0), "TUM stamps must be ordered"
-    rmse = ate_rmse(stamps, positions, seq)
-    assert rmse < 0.15, f"runner trajectory ATE {rmse}"
-    pts, _ = load_pcd(str(tmp_path / "PointCloud.pcd"))
-    assert len(pts) > 500
+    out = read_outputs(str(tmp_path), seq)
+    assert out["n_poses"] >= 3
+    assert out["rows_well_formed"]
+    assert out["stamps_ordered"], "TUM stamps must be ordered"
+    assert out["ate_m"] < 0.15, f"runner trajectory ATE {out['ate_m']}"
+    assert out["n_map_points"] > 500
 
 
 @pytest.mark.slow
@@ -117,7 +25,7 @@ def test_runner_host_pipeline_on_bag(tmp_path):
     bag = str(tmp_path / "synthetic.bag")
     seq = write_synthetic_bag(bag)
     slam = runner.run(
-        [], overrides=_overrides(bag, str(tmp_path), use_imu=False), pipeline="host"
+        [], overrides=runner_overrides(bag, str(tmp_path), use_imu=False), pipeline="host"
     )
     assert slam.kf_map.count >= 2
     check_outputs(tmp_path, seq, slam)
@@ -128,7 +36,7 @@ def test_runner_fused_pipeline_on_bag(tmp_path):
     bag = str(tmp_path / "synthetic.bag")
     seq = write_synthetic_bag(bag)
     slam = runner.run(
-        [], overrides=_overrides(bag, str(tmp_path), use_imu=True), pipeline="fused"
+        [], overrides=runner_overrides(bag, str(tmp_path), use_imu=True), pipeline="fused"
     )
     assert slam.kf_count >= 2
     check_outputs(tmp_path, seq, slam)

@@ -94,8 +94,8 @@ def main():
             "# Virtual-mesh scaling record (flagship distributed keyframe adjustment)\n\n"
             "One host, 8 virtual CPU devices (`--xla_force_host_platform_device_count=8`)\n"
             "— all mesh sizes share the same physical cores, so wall time is an\n"
-            "orchestration-overhead record, NOT a scaling-efficiency claim (this\n"
-            "environment has one real TPU chip). The load-balance column is the\n"
+            "orchestration-overhead record, NOT a scaling-efficiency claim.\n"
+            "The load-balance column is the\n"
             "quantity that determines efficiency on real hardware: valid points per\n"
             f"shard of the K={shapes.n_keyframes} x P={shapes.n_pts_per_kf} keyframe problem "
             f"({n_total} flat slots,\n{params0.shape[0]} pose params, "
